@@ -1,0 +1,221 @@
+"""Batched constraint-grid sweep engine (paper Sec. IV at scale).
+
+The paper's experiment is a grid of (1+λ) runs over combined
+error-constraint configurations × seeds.  The grid runs in chunks of
+``chunk_size`` runs: a chunk's thresholds are stacked into a
+``(chunk, N_METRICS)`` matrix and its per-run PRNG keys into ``(chunk, 2)``,
+and ``core.evolve`` carries that run axis, evaluating each generation's
+whole (chunk × λ) offspring population in one cgp_sim kernel launch.
+
+Runs with different ``gauss_sigma`` cannot share a chunk (σ fixes the
+histogram bin edges), so the execution order groups runs by σ (stable, grid
+order kept within a group) and chunk boundaries break on σ changes.  Short
+chunks are padded with copies of their last run, so every chunk has the
+same shape; results are scattered back to grid order.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from repro_torch import random as R
+from repro_torch.core import metrics as M
+from repro_torch.core import simulate
+from repro_torch.core.evolve import (EvolveConfig, init_state_batched,
+                                     make_batched_generation_step,
+                                     scan_generations)
+from repro_torch.core.fitness import ConstraintSpec, feasible
+from repro_torch.core.genome import CGPSpec, Genome
+from repro_torch.core.power import circuit_cost_from_probs
+from repro_torch.core.search import CircuitRecord, problem_arrays
+
+HISTORY_MODES = ("full", "none")
+
+
+@dataclasses.dataclass(frozen=True)
+class SweepConfig:
+    """Execution knobs of the batched sweep.
+
+    ``keep_history``: ``"full"`` keeps the per-generation parent histories
+    on the returned ``SweepResult`` (``hist_*``, ``(n_runs, gens, ...)``);
+    ``"none"`` drops them.  ``max_chunks`` stops after that many chunks.
+    """
+    chunk_size: int = 32          # runs per chunk (device-memory bound)
+    keep_history: str = "full"
+    max_chunks: int | None = None
+
+    def __post_init__(self):
+        if self.chunk_size < 1:
+            raise ValueError(f"chunk_size must be >= 1, got {self.chunk_size}")
+        if self.keep_history not in HISTORY_MODES:
+            raise ValueError(f"keep_history must be one of {HISTORY_MODES}, "
+                             f"got {self.keep_history!r}")
+
+
+@dataclasses.dataclass
+class SweepResult:
+    """Stacked output of a (possibly partial) grid sweep.
+
+    Run-major arrays are in grid order (constraints outer, seeds inner);
+    ``done_mask`` marks the completed rows and ``records`` holds exactly the
+    completed runs, in grid order.  ``hist_*`` are set only with
+    ``keep_history="full"``.
+    """
+    records: list                      # list[CircuitRecord]
+    thresholds: np.ndarray             # (n_runs, N_METRICS)
+    metrics: np.ndarray                # (n_runs, N_METRICS) final measurement
+    power_rel: np.ndarray              # (n_runs,)
+    feasible: np.ndarray               # (n_runs,) bool
+    best_fit: np.ndarray               # (n_runs,)
+    hist_power_rel: np.ndarray | None  # (n_runs, gens)
+    hist_fit: np.ndarray | None        # (n_runs, gens)
+    hist_metrics: np.ndarray | None    # (n_runs, gens, N_METRICS)
+    done_mask: np.ndarray              # (n_runs,) bool
+    completed: int
+    n_runs: int
+    runs_per_sec: float
+
+
+def evolve_chunk(spec: CGPSpec, cfg: EvolveConfig, golden: Genome,
+                 thr_mat: torch.Tensor, in_planes: torch.Tensor,
+                 golden_vals: torch.Tensor, golden_power: torch.Tensor,
+                 keys: torch.Tensor):
+    """Evolve ``thr_mat.shape[0]`` runs together: one kernel launch for the
+    golden parent, then one per generation.  Histories come back run-major:
+    (state, power_rel (C, gens), metrics (C, gens, N_METRICS),
+    fitness (C, gens))."""
+    step = make_batched_generation_step(spec, cfg)
+    state0 = init_state_batched(spec, cfg, golden, thr_mat, in_planes,
+                                golden_vals, keys)
+    state, (hp, hm, hf) = scan_generations(step, state0, thr_mat, in_planes,
+                                           golden_vals, golden_power,
+                                           cfg.generations)
+    return state, hp.T, hm.transpose(0, 1), hf.T
+
+
+def characterize_chunk(spec: CGPSpec, gauss_sigma: float, nodes: torch.Tensor,
+                       outs: torch.Tensor, thr_mat: torch.Tensor,
+                       in_planes: torch.Tensor, golden_vals: torch.Tensor,
+                       golden_power: torch.Tensor):
+    """Final measurement of C circuits (plain tensor code on the device):
+    (metrics (C, N_METRICS), power_rel (C,), feasible (C,), error mean (C,),
+    error std (C,))."""
+    g = Genome(nodes, outs)
+    wires = simulate.simulate_planes(g, spec, in_planes)
+    cvals = simulate.unpack_values(simulate.output_planes(g, wires))
+    partials = M.error_partials(golden_vals, cvals, gauss_sigma,
+                                n_bits=spec.n_o)
+    met = M.finalize_metrics(partials, spec.n_o, gauss_sigma)
+    probs = simulate.signal_probabilities(wires[:, spec.n_i:])
+    cost = circuit_cost_from_probs(g, spec, probs, with_delay=False)
+    emean, estd = M.error_moments(golden_vals, cvals)
+    return (met, cost.power / golden_power, feasible(met, thr_mat), emean,
+            estd)
+
+
+def sweep_grid(constraints: Sequence[ConstraintSpec],
+               seeds: Sequence[int]) -> list[tuple[ConstraintSpec, int]]:
+    """Run order of the grid: constraints outer, seeds inner."""
+    return [(con, int(seed)) for con in constraints for seed in seeds]
+
+
+def plan_chunks(sigmas: np.ndarray, chunk_size: int) -> list[tuple[int, int]]:
+    """[start, end) chunk spans: ≤ chunk_size runs, uniform gauss_sigma."""
+    spans, start = [], 0
+    n = len(sigmas)
+    while start < n:
+        end = min(start + chunk_size, n)
+        brk = np.flatnonzero(sigmas[start:end] != sigmas[start])
+        if brk.size:
+            end = start + int(brk[0])
+        spans.append((start, end))
+        start = end
+    return spans
+
+
+def run_sweep_batched(cfg, constraints: Sequence[ConstraintSpec],
+                      seeds: Sequence[int] = (0,),
+                      sweep: SweepConfig | None = None,
+                      device: torch.device | str | None = None
+                      ) -> SweepResult:
+    """Execute the constraint×seed grid with the batched engine.
+
+    ``cfg`` is a ``search.SearchConfig``; per-run results match the serial
+    ``run_search`` path (same PRNG streams, same evaluation semantics).
+    Runs on ``device`` (default: the card).
+    """
+    sweep = sweep or SweepConfig()
+    grid = sweep_grid(constraints, seeds)
+    n_runs = len(grid)
+    gens = cfg.evolve.generations
+    gold, spec, in_planes, gvals, gpower = problem_arrays(cfg, device)
+    dev = in_planes.device
+
+    thr = np.stack([con.thresholds() for con, _ in grid])
+    keys = torch.stack([R.PRNGKey(s) for _, s in grid])
+    sigmas = np.array([con.gauss_sigma for con, _ in grid])
+    perm = np.argsort(sigmas, kind="stable")
+    chunks = plan_chunks(sigmas[perm], sweep.chunk_size)
+
+    metrics = np.zeros((n_runs, M.N_METRICS), np.float32)
+    power_rel = np.zeros((n_runs,), np.float32)
+    feas = np.zeros((n_runs,), bool)
+    best_fit = np.zeros((n_runs,), np.float32)
+    nodes = np.zeros((n_runs, spec.n_n, 3), np.int32)
+    outs = np.zeros((n_runs, spec.n_o), np.int32)
+    moments = np.zeros((n_runs, 2), np.float32)
+    full = sweep.keep_history == "full"
+    if full:
+        hist_p = np.zeros((n_runs, gens), np.float32)
+        hist_f = np.zeros((n_runs, gens), np.float32)
+        hist_m = np.zeros((n_runs, gens, M.N_METRICS), np.float32)
+    done = np.zeros(n_runs, bool)
+
+    t0 = time.perf_counter()
+    ran = 0
+    for start, end in chunks[:sweep.max_chunks]:
+        n = end - start
+        sel = perm[np.r_[start:end, np.full(sweep.chunk_size - n, end - 1)]]
+        orig = sel[:n]  # grid-order rows this chunk fills
+        sigma = float(sigmas[orig[0]])
+        ecfg = dataclasses.replace(cfg.evolve, gauss_sigma=sigma)
+        thr_c = torch.as_tensor(thr[sel], device=dev)
+        state, hp, hm, hf = evolve_chunk(spec, ecfg, gold, thr_c, in_planes,
+                                         gvals, gpower,
+                                         keys[torch.from_numpy(sel)].to(dev))
+        met, prel, ok, emean, estd = characterize_chunk(
+            spec, sigma, state.parent.nodes, state.parent.outs, thr_c,
+            in_planes, gvals, gpower)
+        host = lambda x: x.cpu().numpy()[:n]
+        metrics[orig] = host(met)
+        power_rel[orig] = host(prel)
+        feas[orig] = host(ok)
+        best_fit[orig] = host(state.best_fit)
+        nodes[orig] = host(state.parent.nodes)
+        outs[orig] = host(state.parent.outs)
+        moments[orig] = host(torch.stack([emean, estd], dim=1))
+        if full:
+            hist_p[orig], hist_f[orig], hist_m[orig] = (
+                host(hp), host(hf), host(hm))
+        done[orig] = True
+        ran += n
+    dt = time.perf_counter() - t0
+
+    records = [CircuitRecord(
+        genome_nodes=nodes[i], genome_outs=outs[i], metrics=metrics[i],
+        power_rel=float(power_rel[i]), constraint=grid[i][0].describe(),
+        seed=grid[i][1], feasible=bool(feas[i]),
+        error_mean=float(moments[i, 0]), error_std=float(moments[i, 1]))
+        for i in np.flatnonzero(done)]
+    return SweepResult(
+        records=records, thresholds=thr, metrics=metrics,
+        power_rel=power_rel, feasible=feas, best_fit=best_fit,
+        hist_power_rel=hist_p if full else None,
+        hist_fit=hist_f if full else None,
+        hist_metrics=hist_m if full else None,
+        done_mask=done, completed=int(done.sum()), n_runs=n_runs,
+        runs_per_sec=(ran / dt) if ran else 0.0)

@@ -1,0 +1,223 @@
+"""Fused CGP simulation + error-metric kernel: the CUDA launch wrapper.
+
+Replaces the TPU kernel ``repro/kernels/cgp_sim.py:107-207``
+(``_sim_block_partials`` + ``cgp_sim_kernel``, reached through
+``cgp_sim_metrics_batched(layout="genome_major")`` and, with one genome,
+``cgp_sim_metrics``).  It computes the function, not the Pallas grid: for R
+genomes over the whole input cube it walks the netlist over a bit-packed
+wire plane, counts each gate's set bits, unpacks the outputs and returns the
+error-metric partials of ``core.metrics.error_partials`` in raw form
+(``RawSums``), which ``ops`` decodes.
+
+What bounds it on an H100: integer operations.  The function needs, per
+(genome, gate, word), about three 3-input logic ops (LOP3) and one add on
+the int32 pipe and one popcount on the quarter-rate pipe; at the main path's
+shape (R=256, n_n=400, W=2048 words) that is ~2·10^8 gate-words, ~0.05 ms on
+either pipe, plus the per-input unpack and metric work, while the bytes it
+must move (genomes, planes, golden values) are ~2 MB, under a microsecond.
+``chip_smoke.py`` computes the bound from the run's shapes.  The design
+keeps every intermediate on chip: one warp per block owns a 32-word tile,
+the tile's whole wire plane ``[n_i + n_n][32]`` int32 (53 KB at 400 nodes)
+sits in dynamic shared memory, and a thread touches only its own word's
+column during the walk, so gates need no barrier.  The integer partials are
+exact (per-block warp reductions, then integer atomics);
+``rel_sum``/``sq_sum``/``rel_sq`` are computed per element in float32 as
+the reference does, accumulated in float64 per block and reduced over blocks
+in a fixed order, so a rerun gives the same bits.  It is a simple design, a
+few percent of the bound: each gate rebuilds its four lane masks from the
+truth table per word, each output bit is extracted on its own, and the
+one-warp blocks (3 per SM) hide little latency.  Which of these costs most
+has not been measured; speed is later work.
+
+The magnitude sums follow ``metrics._exact_sum``'s regimes: in the byte
+regime the kernel returns the exact integer totals (one rounding to float32
+reproduces the reference's split sum); in the per-bit regime it returns the
+per-bit counts of |d|, max(d, 0) and max(-d, 0), which ``ops`` recombines in
+the reference's float32 order.
+
+``cgp_sim_metrics_batched`` takes CUDA tensors only; its plain version is
+``ref.cgp_eval_ref``, which ``ops`` takes for CPU tensors.  The CUDA source
+is built with ``nvcc`` for ``sm_90a`` at first use into ``build/`` beside
+this file, keyed on a hash of the source and flags, and loaded with ctypes.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.core import gates
+from repro_torch.core import metrics as M
+
+TILE = 32                      # words per tile = threads per block
+N_INTS = 2 + M.N_BINS          # err_count, acc0_bad, hist[N_BINS]
+MAX_SMEM_BYTES = 232_448       # per-block dynamic shared memory on sm_90
+# magnitude rows of RawSums.mag
+ABS, POS, NEG = range(3)
+# float rows of RawSums.fsums
+REL_SUM, SQ_SUM, REL_SQ = range(3)
+
+SOURCE = Path(__file__).with_name("csrc") / "cgp_sim.cu"
+BUILD_DIR = Path(__file__).with_name("build")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# Kernel launches made by ``cgp_sim_metrics_batched`` in this process.
+LAUNCHES = 0
+
+
+class RawSums(NamedTuple):
+    """The kernel's per-genome outputs (leading R)."""
+    mag: torch.Tensor    # (R, 3, n_o | 1) int64: per-bit counts or totals
+    ints: torch.Tensor   # (R, N_INTS) int32: err_count, acc0_bad, hist
+    wce: torch.Tensor    # (R,) int32
+    pops: torch.Tensor   # (R, n_n) int32 per-gate set-bit counts
+    fsums: torch.Tensor  # (R, 3) float64: rel_sum, sq_sum, rel_sq
+
+
+class BuildInfo(NamedTuple):
+    path: Path
+    seconds: float   # 0.0 when the library was already built
+    log: str         # nvcc's output (ptxas register / shared memory report)
+
+
+_LIB = None
+
+
+def _nvcc() -> str:
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(nvcc):
+        raise RuntimeError("nvcc not found: the CUDA toolkit is needed to "
+                           "build the cgp_sim kernel")
+    return nvcc
+
+
+def build() -> BuildInfo:
+    """Compile ``csrc/cgp_sim.cu`` into a shared library (cached by hash)."""
+    src = SOURCE.read_bytes()
+    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    path = BUILD_DIR / f"cgp_sim_{tag}.so"
+    if path.exists():
+        return BuildInfo(path, 0.0, "")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{proc.stdout}{proc.stderr}")
+        os.replace(tmp, path)  # atomic: concurrent builds agree
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return BuildInfo(path, time.perf_counter() - t0, proc.stdout + proc.stderr)
+
+
+def _library():
+    global _LIB
+    if _LIB is None:
+        lib = ctypes.CDLL(str(build().path))
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.cgp_sim_launch.argtypes = [p, p, p, p, i, i, i, i, i, i,
+                                       ctypes.c_uint, ctypes.c_double, i,
+                                       p, p, p, p, p, p]
+        lib.cgp_sim_launch.restype = i
+        lib.cgp_sim_smem_bytes.argtypes = [i, i, i]
+        lib.cgp_sim_smem_bytes.restype = ctypes.c_size_t
+        lib.cgp_sim_error_string.argtypes = [i]
+        lib.cgp_sim_error_string.restype = ctypes.c_char_p
+        _LIB = lib
+    return _LIB
+
+
+def tiles_per_block(R: int, W: int, sm_count: int) -> int:
+    """Cube tiles one block walks: enough blocks for ~8 per SM, and as many
+    tiles per block as that leaves (fewer blocks, fewer atomics)."""
+    n_tiles = -(-W // TILE)
+    blocks_per_genome = min(n_tiles, max(1, -(-8 * sm_count // R)))
+    return -(-n_tiles // blocks_per_genome)
+
+
+def _check(nodes, outs, in_planes, golden_vals, n_i, n_n, n_o):
+    dev = nodes.device
+    for name, x in (("nodes", nodes), ("outs", outs),
+                    ("in_planes", in_planes), ("golden_vals", golden_vals)):
+        if x.dtype != torch.int32:
+            raise TypeError(f"{name} must be int32, got {x.dtype}")
+        if x.device != dev:
+            raise ValueError(f"{name} is on {x.device}, nodes on {dev}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    R = nodes.shape[0]
+    W = in_planes.shape[-1]
+    if nodes.shape != (R, n_n, 3) or outs.shape != (R, n_o):
+        raise ValueError(f"genomes must be (R, {n_n}, 3) / (R, {n_o}), got "
+                         f"{tuple(nodes.shape)} / {tuple(outs.shape)}")
+    if in_planes.shape != (n_i, W) or golden_vals.shape != (32 * W,):
+        raise ValueError(f"in_planes (n_i, W) and golden_vals (32*W,) "
+                         f"mismatch: {tuple(in_planes.shape)}, "
+                         f"{tuple(golden_vals.shape)}")
+    if not 1 <= R <= 65535:
+        raise ValueError(f"R={R} genomes outside the launchable 1..65535")
+    if not 1 <= n_o <= 30:
+        raise ValueError(f"n_o={n_o} outside 1..30")
+
+
+def cgp_sim_metrics_batched(nodes: torch.Tensor, outs: torch.Tensor,
+                            in_planes: torch.Tensor,
+                            golden_vals: torch.Tensor, *, n_i: int, n_n: int,
+                            n_o: int, gauss_sigma: float = 256.0) -> RawSums:
+    """Fused evaluation of R stacked genomes over one input cube.
+
+    Args:
+      nodes: (R, n_n, 3) int32; outs: (R, n_o) int32 — legal genomes.
+      in_planes: (n_i, W) int32; golden_vals: (32·W,) int32.
+    Returns ``RawSums``; the magnitude regime is ``metrics.exact_sum_per_bit
+    (32·W, n_o)``.  Launches the kernel; raises for tensors not on CUDA.
+    """
+    _check(nodes, outs, in_planes, golden_vals, n_i, n_n, n_o)
+    if nodes.device.type != "cuda":
+        raise ValueError(f"no cgp_sim kernel for device {nodes.device}")
+    lib = _library()
+    smem = lib.cgp_sim_smem_bytes(n_i, n_n, n_o)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"wire plane of {n_i + n_n} rows needs {smem} B of "
+                         f"shared memory > {MAX_SMEM_BYTES}")
+    dev = nodes.device
+    R, W = nodes.shape[0], in_planes.shape[1]
+    per_bit = M.exact_sum_per_bit(32 * W, n_o)
+    tpb = tiles_per_block(
+        R, W, torch.cuda.get_device_properties(dev).multi_processor_count)
+    n_tiles = -(-W // TILE)
+    n_blocks = -(-n_tiles // tpb)
+    mag = torch.zeros((R, 3, n_o if per_bit else 1), dtype=torch.int64,
+                      device=dev)
+    ints = torch.zeros((R, N_INTS), dtype=torch.int32, device=dev)
+    wce = torch.zeros((R,), dtype=torch.int32, device=dev)
+    pops = torch.zeros((R, n_n), dtype=torch.int32, device=dev)
+    fpart = torch.empty((R, n_blocks, 3), dtype=torch.float64, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = lib.cgp_sim_launch(
+            nodes.data_ptr(), outs.data_ptr(), in_planes.data_ptr(),
+            golden_vals.data_ptr(), R, n_i, n_n, n_o, W, tpb,
+            gates.TT_PACKED, float(gauss_sigma), int(per_bit),
+            mag.data_ptr(), ints.data_ptr(), wce.data_ptr(), pops.data_ptr(),
+            fpart.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError("cgp_sim launch failed: "
+                           + lib.cgp_sim_error_string(err).decode())
+    global LAUNCHES
+    LAUNCHES += 1
+    return RawSums(mag, ints, wce, pops, fpart.sum(dim=1))

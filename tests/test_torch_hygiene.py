@@ -1,0 +1,102 @@
+"""Boundaries of the port: it never imports JAX or the JAX package, and it
+never falls back from the card to the CPU."""
+import ast
+import os
+import shutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(REPO, "src", "repro_torch")
+PORT_FILES = sorted(
+    [os.path.join(d, f) for d, _, fs in os.walk(PORT) for f in fs
+     if f.endswith(".py")] + [os.path.join(REPO, "chip_smoke.py")])
+
+
+def _imported_modules(path: str) -> set[str]:
+    tree = ast.parse(open(path).read(), path)
+    mods = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            mods.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            mods.add(node.module)
+    return mods
+
+
+def test_port_files_found():
+    names = {os.path.relpath(p, PORT) for p in PORT_FILES}
+    for mod in ("random.py", "convert.py", "core/evolve.py", "core/sweep.py",
+                "kernels/cgp_sim.py", "kernels/ops.py", "launch/evolve.py"):
+        assert mod in names
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_no_jax_or_reference_imports(path):
+    for mod in _imported_modules(path):
+        top = mod.split(".")[0]
+        assert top not in ("jax", "jaxlib", "repro", "flax", "optax"), (
+            f"{path} imports {mod}")
+
+
+def test_import_leaves_jax_unloaded():
+    mods = ["repro_torch." + os.path.relpath(p, PORT)[:-3].replace(os.sep, ".")
+            for p in PORT_FILES if p.startswith(PORT)]
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}:\n"
+            "    importlib.import_module(m.removesuffix('.__init__'))\n"
+            "bad = sorted(m for m in sys.modules\n"
+            "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+            "print(len(sys.modules), bad)\n"
+            "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, cwd=REPO,
+                         env=dict(os.environ,
+                                  PYTHONPATH=os.path.join(REPO, "src")))
+    assert out.returncode == 0, out.stderr
+
+
+def test_default_device_raises_without_a_card(monkeypatch):
+    from repro_torch.core.search import SearchConfig
+    from repro_torch.core.sweep import run_sweep_batched
+    from repro_torch.core.fitness import ConstraintSpec
+    from repro_torch.device import resolve_device
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_sweep_batched(SearchConfig(width=2, kind="add", n_n=20),
+                          [ConstraintSpec(mae=1.0)], (0,))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device("cuda")
+    assert resolve_device("cpu").type == "cpu"
+
+
+def test_non_cpu_tensors_never_take_the_plain_path():
+    from repro_torch.core.search import SearchConfig, problem_arrays
+    from repro_torch.kernels import ops
+    gold, spec, planes, gvals, _ = problem_arrays(
+        SearchConfig(width=2, kind="mul", n_n=20), "cpu")
+    g = type(gold)(gold.nodes[None].to("meta"), gold.outs[None].to("meta"))
+    with pytest.raises(ValueError, match="no cgp_sim kernel"):
+        ops.cgp_eval_batched(g, spec, planes.to("meta"), gvals.to("meta"))
+
+
+def test_chip_smoke_fails_without_a_card():
+    out = subprocess.run([sys.executable, "chip_smoke.py"],
+                         capture_output=True, text=True, timeout=120,
+                         cwd=REPO, env=dict(os.environ,
+                                            CUDA_VISIBLE_DEVICES=""))
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
+
+
+def test_chip_smoke_fails_alone(tmp_path):
+    shutil.copy(os.path.join(REPO, "chip_smoke.py"), tmp_path)
+    out = subprocess.run([sys.executable, "chip_smoke.py"],
+                         capture_output=True, text=True, timeout=120,
+                         cwd=tmp_path)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
