@@ -1,18 +1,21 @@
 """Carry the reference package's state across to the port.
 
-The system's "weights" are its genomes and evolution state.  These helpers
-take arrays from the JAX package (anything ``numpy.asarray`` reads: genome
-arrays, a stacked ``EvolveState`` with its PRNG keys, threshold matrices)
-and return the port's tensors on a given device, so both packages can be
-started from the same state.  Nothing here imports JAX.
+The system's "weights" are its genomes and evolution state, and the
+served LM's parameters.  These helpers take arrays from the JAX package
+(anything ``numpy.asarray`` reads: genome arrays, a stacked ``EvolveState``
+with its PRNG keys, threshold matrices, a model parameter tree) and return
+the port's tensors on a given device, so both packages can be started from
+the same state.  Nothing here imports JAX.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ModelConfig
 from repro_torch.core.evolve import EvolveState
 from repro_torch.core.genome import Genome
+from repro_torch.models.model import Transformer, skeleton
 
 
 def tensor(x, dtype: torch.dtype, device: torch.device | str = "cpu"
@@ -46,3 +49,32 @@ def evolve_state(s, device: torch.device | str = "cpu") -> EvolveState:
                        best=genome(s.best, device),
                        best_fit=f32(s.best_fit),
                        key=keys(s.key, device))
+
+
+def model_params(tree, cfg: ModelConfig, device: torch.device | str = "cpu"
+                 ) -> Transformer:
+    """The reference's parameter tree as the port's ``Transformer``.
+
+    ``tree`` is ``repro.models.model.init_params``'s output: ``embed.tokens``,
+    ``final_norm`` and ``layers.layer{j}``
+    with every leaf stacked over ``n_periods``; layer ``i`` of the port is
+    period ``i // len(period)``, slot ``i % len(period)``.  Values go
+    through float32, so bfloat16 weights arrive unchanged."""
+    params = skeleton(cfg, device)
+    state = {"embed.tokens": tree["embed"]["tokens"],
+             "final_norm": tree["final_norm"]}
+    period = len(cfg.period)
+    for i in range(cfg.n_layers):
+        lt = tree["layers"][f"layer{i % period}"]
+        for part in ("mixer", "ffn"):
+            for name, leaf in lt[part].items():
+                state[f"layers.{i}.{part}.{name}"] = leaf[i // period]
+    own = params.state_dict()
+    if set(state) != set(own):
+        raise ValueError(f"parameter names differ: reference-only "
+                         f"{sorted(set(state) - set(own))}, port-only "
+                         f"{sorted(set(own) - set(state))}")
+    params.load_state_dict({k: tensor(np.asarray(v, np.float32),
+                                      own[k].dtype, device)
+                            for k, v in state.items()})
+    return params

@@ -15,6 +15,7 @@ import torch
 
 from repro_torch import random as R
 from repro_torch.core import golden as G
+from repro_torch.core import metrics as M
 from repro_torch.core import simulate
 from repro_torch.core.evolve import EvolveConfig, EvolveResult, evolve
 from repro_torch.core.fitness import ConstraintSpec
@@ -43,6 +44,10 @@ class CircuitRecord:
     feasible: bool
     error_mean: float = 0.0      # signed error mean (Fig. 13 analyses)
     error_std: float = 0.0
+    # (N_METRICS,) standard errors: zeros, a census has no sampling error
+    metrics_stderr: np.ndarray = dataclasses.field(
+        default_factory=lambda: np.zeros(M.N_METRICS, np.float32))
+    certified: bool = True       # metrics exact over the whole input cube
 
 
 def problem_arrays(cfg: SearchConfig, device: torch.device | str | None = None):

@@ -110,6 +110,17 @@ def unpack_values(out_planes: torch.Tensor) -> torch.Tensor:
     return vals.reshape(*out_planes.shape[:-2], W * 32)
 
 
+def simulate_values(genome: Genome, spec: CGPSpec,
+                    in_planes: torch.Tensor | None = None) -> torch.Tensor:
+    """int(f_C(x)) over the input cube slice (default: the full cube, on
+    the genome's device): (..., W*32) int32."""
+    if in_planes is None:
+        in_planes = torch.as_tensor(input_planes_np(spec.n_i),
+                                    device=genome.nodes.device)
+    wires = simulate_planes(genome, spec, in_planes)
+    return unpack_values(output_planes(genome, wires))
+
+
 def signal_probabilities(wires: torch.Tensor,
                          n_bits: int | None = None) -> torch.Tensor:
     """Exact P(wire = 1) under uniform inputs, from popcounts of bit-planes.

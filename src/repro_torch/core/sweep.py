@@ -12,10 +12,18 @@ histogram bin edges), so the execution order groups runs by σ (stable, grid
 order kept within a group) and chunk boundaries break on σ changes.  Short
 chunks are padded with copies of their last run, so every chunk has the
 same shape; results are scattered back to grid order.
+
+With ``SweepConfig.results_dir`` every finished chunk is committed as one
+result shard (``core.results``, the reference's schema v3), under a
+manifest keyed by ``grid_fingerprint`` — the same hex digest the JAX
+package computes for the same exhaustive grid, so either package's reader
+opens the other's directory.
 """
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import json
 import time
 from typing import Sequence
 
@@ -31,9 +39,14 @@ from repro_torch.core.evolve import (EvolveConfig, init_state_batched,
 from repro_torch.core.fitness import ConstraintSpec, feasible
 from repro_torch.core.genome import CGPSpec, Genome
 from repro_torch.core.power import circuit_cost_from_probs
+from repro_torch.core.results import HISTORY_MODES, SweepResultWriter
 from repro_torch.core.search import CircuitRecord, problem_arrays
 
-HISTORY_MODES = ("full", "none")
+# Fields of the reference's EvolveConfig that its grid fingerprint hashes
+# and the port has no knob for: exhaustive evaluation is the port's only
+# (jnp-equivalent) backend, and island migration is not ported.
+_REFERENCE_BACKEND = "jnp"
+_REFERENCE_MIGRATE_EVERY = 64
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,11 +54,17 @@ class SweepConfig:
     """Execution knobs of the batched sweep.
 
     ``keep_history``: ``"full"`` keeps the per-generation parent histories
-    on the returned ``SweepResult`` (``hist_*``, ``(n_runs, gens, ...)``);
-    ``"none"`` drops them.  ``max_chunks`` stops after that many chunks.
+    on the returned ``SweepResult`` (``hist_*``, ``(n_runs, gens, ...)``)
+    and, with a ``results_dir``, in the shards too; ``"summary"`` writes
+    them to the ``results_dir`` shards only (read them back with
+    ``SweepResultReader.iter_history``; without a ``results_dir`` they are
+    dropped); ``"none"`` keeps them nowhere.  ``results_dir`` streams one
+    shard per chunk (``core.results``).  ``max_chunks`` stops after that
+    many chunks.
     """
     chunk_size: int = 32          # runs per chunk (device-memory bound)
     keep_history: str = "full"
+    results_dir: str | None = None
     max_chunks: int | None = None
 
     def __post_init__(self):
@@ -78,6 +97,14 @@ class SweepResult:
     completed: int
     n_runs: int
     runs_per_sec: float
+    results_dir: str | None = None     # where the shards went, if streaming
+
+    def reader(self):
+        """The ``SweepResultReader`` of this sweep's ``results_dir``."""
+        from repro_torch.core.results import SweepResultReader
+        if self.results_dir is None:
+            raise ValueError("sweep ran without results_dir: no shards")
+        return SweepResultReader(self.results_dir)
 
 
 def evolve_chunk(spec: CGPSpec, cfg: EvolveConfig, golden: Genome,
@@ -137,6 +164,29 @@ def plan_chunks(sigmas: np.ndarray, chunk_size: int) -> list[tuple[int, int]]:
     return spans
 
 
+def grid_fingerprint(cfg, grid, keep_history: str) -> str:
+    """Identity of (problem, grid, history mode) pinned by the results
+    manifest: the hex digest ``repro.core.sweep.grid_fingerprint`` gives
+    for the same exhaustive grid run with ``backend="jnp"``, no migration
+    (the reference hashes "full"/"none" as the bools they once were)."""
+    ecfg = cfg.evolve
+    ident = {
+        "width": cfg.width, "kind": cfg.kind, "n_n": cfg.n_n,
+        "generations": ecfg.generations, "lam": ecfg.lam,
+        "mutation_rate": ecfg.mutation_rate, "backend": _REFERENCE_BACKEND,
+        "migrate_every": _REFERENCE_MIGRATE_EVERY,
+        "keep_history": {"full": True, "none": False}.get(keep_history,
+                                                         keep_history),
+        "grid": [(con.describe(), con.gauss_sigma, seed)
+                 for con, seed in grid],
+        "thresholds": hashlib.sha256(
+            np.stack([con.thresholds() for con, _ in grid]).tobytes()
+        ).hexdigest(),
+    }
+    return hashlib.sha256(json.dumps(ident, sort_keys=True,
+                                     default=float).encode()).hexdigest()
+
+
 def run_sweep_batched(cfg, constraints: Sequence[ConstraintSpec],
                       seeds: Sequence[int] = (0,),
                       sweep: SweepConfig | None = None,
@@ -146,9 +196,11 @@ def run_sweep_batched(cfg, constraints: Sequence[ConstraintSpec],
 
     ``cfg`` is a ``search.SearchConfig``; per-run results match the serial
     ``run_search`` path (same PRNG streams, same evaluation semantics).
-    Runs on ``device`` (default: the card).
+    Runs on ``device`` (default: the card).  With ``sweep.results_dir``
+    every finished chunk is committed as one shard (``core.results``).
     """
     sweep = sweep or SweepConfig()
+    mode = sweep.keep_history
     grid = sweep_grid(constraints, seeds)
     n_runs = len(grid)
     gens = cfg.evolve.generations
@@ -161,6 +213,20 @@ def run_sweep_batched(cfg, constraints: Sequence[ConstraintSpec],
     perm = np.argsort(sigmas, kind="stable")
     chunks = plan_chunks(sigmas[perm], sweep.chunk_size)
 
+    writer = None
+    if sweep.results_dir:
+        writer = SweepResultWriter(
+            sweep.results_dir,
+            grid_fingerprint=grid_fingerprint(cfg, grid, mode),
+            grid_meta=[{"constraint": con.describe(), "seed": seed,
+                        "gauss_sigma": con.gauss_sigma}
+                       for con, seed in grid],
+            n_runs=n_runs, gens=gens, n_n=spec.n_n, n_o=spec.n_o,
+            keep_history=mode, chunk_size=sweep.chunk_size,
+            chunk_spans=chunks,
+            problem_meta={"width": cfg.width, "kind": cfg.kind,
+                          "n_n": spec.n_n})
+
     metrics = np.zeros((n_runs, M.N_METRICS), np.float32)
     power_rel = np.zeros((n_runs,), np.float32)
     feas = np.zeros((n_runs,), bool)
@@ -168,7 +234,7 @@ def run_sweep_batched(cfg, constraints: Sequence[ConstraintSpec],
     nodes = np.zeros((n_runs, spec.n_n, 3), np.int32)
     outs = np.zeros((n_runs, spec.n_o), np.int32)
     moments = np.zeros((n_runs, 2), np.float32)
-    full = sweep.keep_history == "full"
+    full = mode == "full"
     if full:
         hist_p = np.zeros((n_runs, gens), np.float32)
         hist_f = np.zeros((n_runs, gens), np.float32)
@@ -201,6 +267,25 @@ def run_sweep_batched(cfg, constraints: Sequence[ConstraintSpec],
         if full:
             hist_p[orig], hist_f[orig], hist_m[orig] = (
                 host(hp), host(hf), host(hm))
+        if writer is not None:
+            rows = {
+                "grid_rows": orig.astype(np.int32),
+                "thresholds": thr[orig],
+                "parent_nodes": nodes[orig], "parent_outs": outs[orig],
+                "best_nodes": host(state.best.nodes),
+                "best_outs": host(state.best.outs),
+                "best_fit": best_fit[orig], "metrics": metrics[orig],
+                "metrics_stderr": np.zeros((n, M.N_METRICS), np.float32),
+                "power_rel": power_rel[orig],
+                "feasible": feas[orig].astype(np.uint8),
+                "certified_mask": np.ones(n, np.uint8),  # a census is exact
+                "error_mean": moments[orig, 0],
+                "error_std": moments[orig, 1],
+            }
+            if mode != "none":
+                rows.update(hist_power_rel=host(hp), hist_fit=host(hf),
+                            hist_metrics=host(hm))
+            writer.write_chunk((start, end), rows)
         done[orig] = True
         ran += n
     dt = time.perf_counter() - t0
@@ -218,4 +303,5 @@ def run_sweep_batched(cfg, constraints: Sequence[ConstraintSpec],
         hist_fit=hist_f if full else None,
         hist_metrics=hist_m if full else None,
         done_mask=done, completed=int(done.sum()), n_runs=n_runs,
-        runs_per_sec=(ran / dt) if ran else 0.0)
+        runs_per_sec=(ran / dt) if ran else 0.0,
+        results_dir=sweep.results_dir)

@@ -37,25 +37,19 @@ the reference's float32 order.
 
 ``cgp_sim_metrics_batched`` takes CUDA tensors only; its plain version is
 ``ref.cgp_eval_ref``, which ``ops`` takes for CPU tensors.  The CUDA source
-is built with ``nvcc`` for ``sm_90a`` at first use into ``build/`` beside
-this file, keyed on a hash of the source and flags, and loaded with ctypes.
+is built with ``nvcc`` for ``sm_90a`` at first use (``kernels.nvcc``) and
+loaded with ctypes.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-import time
-from pathlib import Path
 from typing import NamedTuple
 
 import torch
 
 from repro_torch.core import gates
 from repro_torch.core import metrics as M
+from repro_torch.kernels import nvcc
 
 TILE = 32                      # words per tile = threads per block
 N_INTS = 2 + M.N_BINS          # err_count, acc0_bad, hist[N_BINS]
@@ -65,10 +59,7 @@ ABS, POS, NEG = range(3)
 # float rows of RawSums.fsums
 REL_SUM, SQ_SUM, REL_SQ = range(3)
 
-SOURCE = Path(__file__).with_name("csrc") / "cgp_sim.cu"
-BUILD_DIR = Path(__file__).with_name("build")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+SOURCE = nvcc.CSRC / "cgp_sim.cu"
 
 # Kernel launches made by ``cgp_sim_metrics_batched`` in this process.
 LAUNCHES = 0
@@ -83,45 +74,12 @@ class RawSums(NamedTuple):
     fsums: torch.Tensor  # (R, 3) float64: rel_sum, sq_sum, rel_sq
 
 
-class BuildInfo(NamedTuple):
-    path: Path
-    seconds: float   # 0.0 when the library was already built
-    log: str         # nvcc's output (ptxas register / shared memory report)
-
-
 _LIB = None
 
 
-def _nvcc() -> str:
-    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(nvcc):
-        raise RuntimeError("nvcc not found: the CUDA toolkit is needed to "
-                           "build the cgp_sim kernel")
-    return nvcc
-
-
-def build() -> BuildInfo:
+def build() -> nvcc.BuildInfo:
     """Compile ``csrc/cgp_sim.cu`` into a shared library (cached by hash)."""
-    src = SOURCE.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    path = BUILD_DIR / f"cgp_sim_{tag}.so"
-    if path.exists():
-        return BuildInfo(path, 0.0, "")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    t0 = time.perf_counter()
-    try:
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}{proc.stderr}")
-        os.replace(tmp, path)  # atomic: concurrent builds agree
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return BuildInfo(path, time.perf_counter() - t0, proc.stdout + proc.stderr)
+    return nvcc.build(SOURCE)
 
 
 def _library():

@@ -1,10 +1,9 @@
-"""Candidate evaluation through the cgp_sim kernel.
+"""Public entry points of the port's kernels.
 
-The device decides the path: CUDA tensors go through the hand-written kernel
-(``kernels.cgp_sim``) and ``_partials_from_raw`` decodes its raw sums; CPU
-tensors go through the plain oracle ``ref.cgp_eval_ref``.  There is no
-fallback between the two and no knob: a CUDA tensor launches the kernel or
-raises.
+The device decides the path: CUDA tensors go through the hand-written
+kernels (``kernels.cgp_sim``, ``kernels.lut_matmul``); CPU tensors go
+through their plain versions in ``kernels.ref``.  There is no fallback
+between the two and no knob: a CUDA tensor launches the kernel or raises.
 """
 from __future__ import annotations
 
@@ -13,7 +12,13 @@ import torch
 from repro_torch.core import metrics as M
 from repro_torch.core.genome import CGPSpec, Genome
 from repro_torch.kernels import cgp_sim as _cgp
+from repro_torch.kernels import lut_matmul as _lut
 from repro_torch.kernels import ref
+
+# The last table staged for the lut_matmul kernel: (int32 LUT tensor, its
+# version counter, staged uint16 table).  A model's projections all use the
+# same installed LUT, so it is checked and converted once, not per call.
+_STAGED: tuple | None = None
 
 
 def _partials_from_raw(raw: _cgp.RawSums, n_words: int,
@@ -71,3 +76,40 @@ def cgp_eval(genome: Genome, spec: CGPSpec, in_planes: torch.Tensor,
         Genome(genome.nodes[None], genome.outs[None]), spec, in_planes,
         golden_vals, gauss_sigma)
     return M.MetricPartials(*(x[0] for x in partials)), pops[0]
+
+
+def _staged_table(lut: torch.Tensor) -> torch.Tensor:
+    """The staged table of ``lut``, cached while the same tensor is passed
+    unchanged (inference tensors carry no version counter: restaged)."""
+    global _STAGED
+    if lut.is_inference():
+        return _lut.stage_table(lut)
+    if _STAGED is None or _STAGED[0] is not lut \
+            or _STAGED[1] != lut._version:
+        _STAGED = (lut, lut._version, _lut.stage_table(lut))
+    return _STAGED[2]
+
+
+def _as_u8(x: torch.Tensor, name: str) -> torch.Tensor:
+    """An operand as contiguous uint8, checking the range of wider ints."""
+    if x.dtype != torch.uint8:
+        if x.dtype.is_floating_point or not (
+                bool((x >= 0).all()) and bool((x <= 255).all())):
+            raise ValueError(f"{name} must hold integers in [0, 255]")
+        x = x.to(torch.uint8)
+    return x.contiguous()
+
+
+def lut_matmul(a: torch.Tensor, b: torch.Tensor,
+               lut: torch.Tensor) -> torch.Tensor:
+    """Approximate-multiplier matmul ``C[m, n] = Σ_k LUT[a[m, k], b[k, n]]``.
+
+    Any (M, K) × (K, N) with operand values in [0, 255] (uint8, or a wider
+    integer type that is checked); ``lut`` (256, 256) integer.  Returns the
+    exact int32 contraction — no padding, so ``LUT[0, 0] != 0`` adds
+    nothing for k outside [0, K).  CPU tensors take ``ref.lut_matmul_ref``;
+    CUDA tensors launch the kernel, which needs every entry of ``lut`` in
+    [0, 65535] and raises otherwise."""
+    if a.device.type == "cpu":
+        return ref.lut_matmul_ref(a, b, lut)
+    return _lut.lut_matmul(_as_u8(a, "a"), _as_u8(b, "b"), _staged_table(lut))

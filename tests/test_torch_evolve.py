@@ -308,7 +308,8 @@ def test_sweep_config_validates():
     with pytest.raises(ValueError):
         SweepConfig(chunk_size=0)
     with pytest.raises(ValueError):
-        SweepConfig(keep_history="summary")
+        SweepConfig(keep_history="bogus")
+    assert SweepConfig(keep_history="summary").results_dir is None
 
 
 def test_single_run_step_matches_evolve():

@@ -30,7 +30,12 @@ def _imported_modules(path: str) -> set[str]:
 def test_port_files_found():
     names = {os.path.relpath(p, PORT) for p in PORT_FILES}
     for mod in ("random.py", "convert.py", "core/evolve.py", "core/sweep.py",
-                "kernels/cgp_sim.py", "kernels/ops.py", "launch/evolve.py"):
+                "kernels/cgp_sim.py", "kernels/ops.py", "launch/evolve.py",
+                "core/results.py", "core/artifacts.py", "core/library.py",
+                "checkpoint/store.py", "kernels/lut_matmul.py",
+                "kernels/nvcc.py", "models/quant.py", "models/model.py",
+                "configs/llama3_2_1b.py", "launch/serve.py",
+                "launch/export.py"):
         assert mod in names
 
 
@@ -82,6 +87,44 @@ def test_non_cpu_tensors_never_take_the_plain_path():
     g = type(gold)(gold.nodes[None].to("meta"), gold.outs[None].to("meta"))
     with pytest.raises(ValueError, match="no cgp_sim kernel"):
         ops.cgp_eval_batched(g, spec, planes.to("meta"), gvals.to("meta"))
+
+
+def test_serve_default_device_raises_without_a_card(monkeypatch):
+    from repro_torch.launch import serve
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: serve.serve("llama3_2_1b"),
+                 lambda: serve.quality_report("llama3_2_1b", None)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--arch", "llama3_2_1b", "--reduced"])
+
+
+def test_lut_matmul_never_takes_the_plain_path_off_the_cpu():
+    from repro_torch.kernels import lut_matmul
+    a = torch.zeros((4, 8), dtype=torch.uint8, device="meta")
+    b = torch.zeros((8, 3), dtype=torch.uint8, device="meta")
+    table = torch.zeros((65536,), dtype=torch.int16, device="meta")
+    with pytest.raises(ValueError, match="no lut_matmul kernel"):
+        lut_matmul.lut_matmul(a, b, table)
+
+
+def test_pallas_attention_raises():
+    import dataclasses
+    from repro_torch.configs import llama3_2_1b
+    from repro_torch.models import attention
+    cfg = dataclasses.replace(llama3_2_1b.reduced(), attn_impl="pallas")
+    q = torch.zeros((1, 4, 8, 8))
+    k = torch.zeros((1, 4, 2, 8))
+    with pytest.raises(NotImplementedError, match="B5"):
+        attention.run_attention(q, k, k, cfg)
+
+
+def test_no_environment_knobs():
+    """No port module reads the environment to pick a kernel or a path."""
+    for path in PORT_FILES:
+        src = open(path).read()
+        assert "os.environ" not in src and "getenv" not in src, path
 
 
 def test_chip_smoke_fails_without_a_card():
