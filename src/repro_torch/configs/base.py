@@ -48,8 +48,8 @@ class ModelConfig:
     act_dtype: str = "float32"
     loss_vocab_chunk: int = 0   # sequence chunk of the CE; 0 = unchunked
     approx_matmul: bool = False  # evolved approximate-multiplier emulation
-    # "blocked" (online softmax) | "naive"; "pallas" (the flash kernel)
-    # is not ported yet and raises
+    # "blocked" (online softmax) | "naive" | "pallas" (the flash kernel,
+    # kernels.flash_attention)
     attn_impl: str = "blocked"
     attn_block_q: int = 512
     attn_block_kv: int = 1024

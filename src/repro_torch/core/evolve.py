@@ -38,6 +38,10 @@ class EvolveConfig:
     gauss_sigma: float = 256.0
     # the reference's field; each run's stream is PRNGKey(its own seed)
     seed: int = 0
+    # cgp_sim kernel variant: "genome_major", "cube_major", or "auto" (the
+    # tuning table, kernels.tune).  An execution knob: the runs are the same
+    # under every layout, so the grid fingerprint leaves it out.
+    layout: str = "auto"
 
 
 class EvalResult(NamedTuple):
@@ -66,11 +70,12 @@ class EvolveResult(NamedTuple):
 
 
 def eval_population(genomes: Genome, spec: CGPSpec, in_planes: torch.Tensor,
-                    golden_vals: torch.Tensor, gauss_sigma: float
-                    ) -> EvalResult:
-    """Metric vectors and cost of (R,)-stacked genomes: one kernel launch."""
+                    golden_vals: torch.Tensor, gauss_sigma: float,
+                    layout: str = "auto") -> EvalResult:
+    """Metric vectors and cost of (R,)-stacked genomes: one kernel launch
+    in the ``layout`` variant."""
     partials, pops = kops.cgp_eval_batched(genomes, spec, in_planes,
-                                           golden_vals, gauss_sigma)
+                                           golden_vals, gauss_sigma, layout)
     probs = pops / partials.count.to(torch.float32)[:, None]
     metric_vec = M.finalize_metrics(partials, spec.n_o, gauss_sigma)
     cost = circuit_cost_from_probs(genomes, spec, probs, with_delay=False)
@@ -119,7 +124,7 @@ def make_batched_generation_step(spec: CGPSpec, cfg: EvolveConfig
         flat = Genome(offspring.nodes.reshape(C * cfg.lam, spec.n_n, 3),
                       offspring.outs.reshape(C * cfg.lam, spec.n_o))
         res = eval_population(flat, spec, in_planes, golden_vals,
-                              cfg.gauss_sigma)
+                              cfg.gauss_sigma, cfg.layout)
         mets = res.metric_vec.reshape(C, cfg.lam, M.N_METRICS)
         powers = res.cost.power.reshape(C, cfg.lam)
         fits = fitness_fn(powers, mets, thr_mat[:, None, :])
@@ -136,7 +141,8 @@ def init_state_batched(spec: CGPSpec, cfg: EvolveConfig, golden: Genome,
     """Initial state of C runs: the golden parent is evaluated ONCE (a
     one-genome kernel launch) and broadcast; only fitness differs per run."""
     res = eval_population(Genome(golden.nodes[None], golden.outs[None]),
-                          spec, in_planes, golden_vals, cfg.gauss_sigma)
+                          spec, in_planes, golden_vals, cfg.gauss_sigma,
+                          cfg.layout)
     C = thr_mat.shape[0]
     fit = fitness_fn(res.cost.power, res.metric_vec, thr_mat)
     parent = Genome(golden.nodes.expand(C, -1, -1).clone(),

@@ -18,6 +18,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch import random as R
 from repro_torch.core import gates
 
 
@@ -57,6 +58,19 @@ class CGPSpec:
 def max_fanin_index(spec: CGPSpec) -> np.ndarray:
     """Exclusive upper bound of a legal fan-in index for each node position."""
     return spec.n_i + np.arange(spec.n_n, dtype=np.int32)
+
+
+def random_genome(key: torch.Tensor, spec: CGPSpec) -> Genome:
+    """Uniform random legal (feed-forward) genome: JAX's draw for the same
+    key, bit for bit.  ``key`` (..., 2) may carry batch dims; the genome
+    then carries them too (the reference's ``vmap`` over keys)."""
+    keys = R.split(key, 4)
+    hi = torch.as_tensor(max_fanin_index(spec), device=key.device)
+    in0, in1 = (R.randint(keys[..., i, :], (spec.n_n,), 0, hi)
+                for i in (0, 1))
+    func = R.randint(keys[..., 2, :], (spec.n_n,), 0, spec.n_funcs)
+    outs = R.randint(keys[..., 3, :], (spec.n_o,), 0, spec.n_wires)
+    return Genome(torch.stack([in0, in1, func], dim=-1), outs)
 
 
 def validate_genome(genome: Genome, spec: CGPSpec) -> bool:

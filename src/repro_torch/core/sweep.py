@@ -60,12 +60,16 @@ class SweepConfig:
     ``SweepResultReader.iter_history``; without a ``results_dir`` they are
     dropped); ``"none"`` keeps them nowhere.  ``results_dir`` streams one
     shard per chunk (``core.results``).  ``max_chunks`` stops after that
-    many chunks.
+    many chunks.  ``layout`` overrides ``cfg.evolve.layout`` (the cgp_sim
+    kernel variant: ``"auto"``, ``"genome_major"``, ``"cube_major"``) for
+    every chunk of this sweep; ``None`` defers to it.  The runs are the same
+    under every layout, and the grid fingerprint leaves it out.
     """
     chunk_size: int = 32          # runs per chunk (device-memory bound)
     keep_history: str = "full"
     results_dir: str | None = None
     max_chunks: int | None = None
+    layout: str | None = None
 
     def __post_init__(self):
         if self.chunk_size < 1:
@@ -73,6 +77,10 @@ class SweepConfig:
         if self.keep_history not in HISTORY_MODES:
             raise ValueError(f"keep_history must be one of {HISTORY_MODES}, "
                              f"got {self.keep_history!r}")
+        if self.layout not in (None, "auto", "genome_major", "cube_major"):
+            raise ValueError(
+                f"layout must be None, 'auto', 'genome_major' or "
+                f"'cube_major', got {self.layout!r}")
 
 
 @dataclasses.dataclass
@@ -249,6 +257,8 @@ def run_sweep_batched(cfg, constraints: Sequence[ConstraintSpec],
         orig = sel[:n]  # grid-order rows this chunk fills
         sigma = float(sigmas[orig[0]])
         ecfg = dataclasses.replace(cfg.evolve, gauss_sigma=sigma)
+        if sweep.layout is not None:
+            ecfg = dataclasses.replace(ecfg, layout=sweep.layout)
         thr_c = torch.as_tensor(thr[sel], device=dev)
         state, hp, hm, hf = evolve_chunk(spec, ecfg, gold, thr_c, in_planes,
                                          gvals, gpower,

@@ -1,13 +1,14 @@
 """Fused CGP simulation + error-metric kernel: the CUDA launch wrapper.
 
-Replaces the TPU kernel ``repro/kernels/cgp_sim.py:107-207``
-(``_sim_block_partials`` + ``cgp_sim_kernel``, reached through
-``cgp_sim_metrics_batched(layout="genome_major")`` and, with one genome,
-``cgp_sim_metrics``).  It computes the function, not the Pallas grid: for R
-genomes over the whole input cube it walks the netlist over a bit-packed
-wire plane, counts each gate's set bits, unpacks the outputs and returns the
-error-metric partials of ``core.metrics.error_partials`` in raw form
-(``RawSums``), which ``ops`` decodes.
+Replaces the TPU kernels ``repro/kernels/cgp_sim.py:107-238``
+(``_sim_block_partials`` with ``cgp_sim_kernel`` and
+``cgp_sim_kernel_cube_major``, reached through ``cgp_sim_metrics_batched``
+with ``layout="genome_major"`` or ``"cube_major"``, and with one genome
+through ``cgp_sim_metrics``).  It computes the function, not the Pallas
+grid: for R genomes over the whole input cube it walks the netlist over a
+bit-packed wire plane, counts each gate's set bits, unpacks the outputs and
+returns the error-metric partials of ``core.metrics.error_partials`` in raw
+form (``RawSums``), which ``ops`` decodes.
 
 What bounds it on an H100: integer operations.  The function needs, per
 (genome, gate, word), about three 3-input logic ops (LOP3) and one add on
@@ -22,12 +23,38 @@ sits in dynamic shared memory, and a thread touches only its own word's
 column during the walk, so gates need no barrier.  The integer partials are
 exact (per-block warp reductions, then integer atomics);
 ``rel_sum``/``sq_sum``/``rel_sq`` are computed per element in float32 as
-the reference does, accumulated in float64 per block and reduced over blocks
-in a fixed order, so a rerun gives the same bits.  It is a simple design, a
-few percent of the bound: each gate rebuilds its four lane masks from the
-truth table per word, each output bit is extracted on its own, and the
-one-warp blocks (3 per SM) hide little latency.  Which of these costs most
-has not been measured; speed is later work.
+the reference does, accumulated in float64 per (genome, run of tiles) and
+reduced over runs in a fixed order, so a rerun gives the same bits.  It is
+a simple design, a few percent of the bound: each gate rebuilds its four
+lane masks from the truth table per word, each output bit is extracted on
+its own, and the one-warp blocks (3 per SM) hide little latency.
+
+The two layouts are two kernels over the same per-genome walk:
+
+* ``"genome_major"``: one block per (run of tiles, genome), reading the
+  cube's planes and golden values from device memory (where the 50 MB L2
+  keeps them for the other genomes);
+* ``"cube_major"``: one block per (run of tiles, group of ``r_tile``
+  genomes); the block stages its run of planes and golden values in shared
+  memory once (``n_i + 32`` ints per word: 6 KB per 32-word tile at width
+  8, beside the 53 KB wire plane) and walks each genome of the group over
+  it — the reference's cube block held resident while the genomes stream
+  past.
+
+The knobs keep the reference's names.  ``block_words`` is the cube words
+one block covers: the run the cube-major block keeps resident in shared
+memory (the genome-major block streams it through its one-tile wire plane).
+``None`` takes ``tiles_per_block``'s run, sized for occupancy.  ``r_tile``
+is the genomes that share one resident run in cube-major; genome-major
+takes one genome per block and has no use for it (1).  The float rows are
+summed per (genome, run), so they depend on the run alone: every variant
+with the same runs gives bit-identical ``RawSums`` whatever its layout or
+``r_tile`` — in particular both layouts with ``block_words=None``, unless
+``tiles_per_block``'s run does not fit the cube-major block's shared memory
+(width 10 at small R), where cube-major's default takes the longest run
+that fits.  Variants whose runs differ (another ``block_words``) agree on
+every integer exactly and on the float rows within float64 reassociation,
+far inside rtol 1e-6.
 
 The magnitude sums follow ``metrics._exact_sum``'s regimes: in the byte
 regime the kernel returns the exact integer totals (one rounding to float32
@@ -43,6 +70,7 @@ loaded with ctypes.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -61,8 +89,13 @@ REL_SUM, SQ_SUM, REL_SQ = range(3)
 
 SOURCE = nvcc.CSRC / "cgp_sim.cu"
 
-# Kernel launches made by ``cgp_sim_metrics_batched`` in this process.
+LAYOUTS = ("genome_major", "cube_major")
+DEFAULT_R_TILE = 8             # cube-major genomes per block by default
+
+# Kernel launches made by ``cgp_sim_metrics_batched`` in this process: the
+# genome-major kernel's and the cube-major kernel's.
 LAUNCHES = 0
+CUBE_LAUNCHES = 0
 
 
 class RawSums(NamedTuple):
@@ -87,16 +120,19 @@ def _library():
     if _LIB is None:
         lib = ctypes.CDLL(str(build().path))
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.cgp_sim_launch.argtypes = [p, p, p, p, i, i, i, i, i, i,
+        lib.cgp_sim_launch.argtypes = [p, p, p, p, i, i, i, i, i, i, i,
                                        ctypes.c_uint, ctypes.c_double, i,
                                        p, p, p, p, p, p]
         lib.cgp_sim_launch.restype = i
-        lib.cgp_sim_smem_bytes.argtypes = [i, i, i]
-        lib.cgp_sim_smem_bytes.restype = ctypes.c_size_t
         lib.cgp_sim_error_string.argtypes = [i]
         lib.cgp_sim_error_string.restype = ctypes.c_char_p
         _LIB = lib
     return _LIB
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def tiles_per_block(R: int, W: int, sm_count: int) -> int:
@@ -105,6 +141,46 @@ def tiles_per_block(R: int, W: int, sm_count: int) -> int:
     n_tiles = -(-W // TILE)
     blocks_per_genome = min(n_tiles, max(1, -(-8 * sm_count // R)))
     return -(-n_tiles // blocks_per_genome)
+
+
+def smem_bytes(n_i: int, n_n: int, n_o: int,
+               run_tiles: int | None = None) -> int:
+    """Dynamic shared memory of one block: the genome-major layout
+    (``run_tiles=None``) or a cube-major block staging ``run_tiles`` tiles.
+    The same sum as ``cgp_sim_smem_bytes`` / ``cgp_sim_cube_smem_bytes``
+    in the CUDA source."""
+    base = 16 * n_n + 4 * (n_i + n_n) * TILE + 4 * n_n + 4 * n_o
+    return base + (4 * (n_i + 32) * run_tiles * TILE if run_tiles else 0)
+
+
+def run_tiles(layout: str, block_words: int | None, R: int, W: int,
+              n_i: int, n_n: int, n_o: int, sm_count: int) -> int:
+    """Tiles per run (one block's share of the cube) for a variant.
+
+    An explicit ``block_words`` must be a multiple of the 32-word tile or
+    cover the whole cube; a cube-major run that does not fit in shared
+    memory raises.  ``None`` takes ``tiles_per_block``'s run, which
+    cube-major caps at the longest run that fits."""
+    if layout not in LAYOUTS:
+        raise ValueError(f"layout must be one of {LAYOUTS}, got {layout!r}")
+    n_tiles = -(-W // TILE)
+    if block_words is None:
+        tiles = tiles_per_block(R, W, sm_count)
+        if layout == "cube_major":
+            room = MAX_SMEM_BYTES - smem_bytes(n_i, n_n, n_o)
+            tiles = max(1, min(tiles, room // (4 * (n_i + 32) * TILE)))
+        return tiles
+    if block_words < 1 or (block_words % TILE and block_words < W):
+        raise ValueError(f"block_words={block_words} must be a positive "
+                         f"multiple of {TILE} or cover the cube's {W} words")
+    tiles = min(n_tiles, -(-block_words // TILE))
+    if layout == "cube_major":
+        need = smem_bytes(n_i, n_n, n_o, tiles)
+        if need > MAX_SMEM_BYTES:
+            raise ValueError(
+                f"cube-major run of {tiles * TILE} words needs {need} B of "
+                f"shared memory > {MAX_SMEM_BYTES}; use fewer block_words")
+    return tiles
 
 
 def _check(nodes, outs, in_planes, golden_vals, n_i, n_n, n_o):
@@ -135,47 +211,66 @@ def _check(nodes, outs, in_planes, golden_vals, n_i, n_n, n_o):
 def cgp_sim_metrics_batched(nodes: torch.Tensor, outs: torch.Tensor,
                             in_planes: torch.Tensor,
                             golden_vals: torch.Tensor, *, n_i: int, n_n: int,
-                            n_o: int, gauss_sigma: float = 256.0) -> RawSums:
+                            n_o: int, gauss_sigma: float = 256.0,
+                            layout: str = "genome_major",
+                            block_words: int | None = None,
+                            r_tile: int | None = None) -> RawSums:
     """Fused evaluation of R stacked genomes over one input cube.
 
     Args:
       nodes: (R, n_n, 3) int32; outs: (R, n_o) int32 — legal genomes.
       in_planes: (n_i, W) int32; golden_vals: (32·W,) int32.
+      layout: ``"genome_major"`` or ``"cube_major"`` (resolve ``"auto"``
+        upstream, in ``ops.cgp_eval_batched``).
+      block_words, r_tile: the variant's knobs (module docstring); ``None``
+        takes the defaults (``tiles_per_block``'s run; ``DEFAULT_R_TILE``).
     Returns ``RawSums``; the magnitude regime is ``metrics.exact_sum_per_bit
     (32·W, n_o)``.  Launches the kernel; raises for tensors not on CUDA.
     """
     _check(nodes, outs, in_planes, golden_vals, n_i, n_n, n_o)
     if nodes.device.type != "cuda":
         raise ValueError(f"no cgp_sim kernel for device {nodes.device}")
-    lib = _library()
-    smem = lib.cgp_sim_smem_bytes(n_i, n_n, n_o)
+    cube = layout == "cube_major"
+    dev = nodes.device
+    R, W = nodes.shape[0], in_planes.shape[1]
+    tpb = run_tiles(layout, block_words, R, W, n_i, n_n, n_o,
+                    _sm_count(dev.index if dev.index is not None
+                              else torch.cuda.current_device()))
+    if cube:
+        r_tile = DEFAULT_R_TILE if r_tile is None else r_tile
+        if r_tile < 1:
+            raise ValueError(f"r_tile must be positive, got {r_tile}")
+    else:
+        r_tile = 0     # the launcher's code for one genome per block
+    smem = smem_bytes(n_i, n_n, n_o, tpb if cube else None)
     if smem > MAX_SMEM_BYTES:
         raise ValueError(f"wire plane of {n_i + n_n} rows needs {smem} B of "
                          f"shared memory > {MAX_SMEM_BYTES}")
-    dev = nodes.device
-    R, W = nodes.shape[0], in_planes.shape[1]
+    if cube and -(-R // r_tile) > 65535:
+        raise ValueError(f"{-(-R // r_tile)} genome groups exceed the grid")
     per_bit = M.exact_sum_per_bit(32 * W, n_o)
-    tpb = tiles_per_block(
-        R, W, torch.cuda.get_device_properties(dev).multi_processor_count)
-    n_tiles = -(-W // TILE)
-    n_blocks = -(-n_tiles // tpb)
+    n_blocks = -(-(-(-W // TILE)) // tpb)
     mag = torch.zeros((R, 3, n_o if per_bit else 1), dtype=torch.int64,
                       device=dev)
     ints = torch.zeros((R, N_INTS), dtype=torch.int32, device=dev)
     wce = torch.zeros((R,), dtype=torch.int32, device=dev)
     pops = torch.zeros((R, n_n), dtype=torch.int32, device=dev)
     fpart = torch.empty((R, n_blocks, 3), dtype=torch.float64, device=dev)
+    lib = _library()
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = lib.cgp_sim_launch(
             nodes.data_ptr(), outs.data_ptr(), in_planes.data_ptr(),
-            golden_vals.data_ptr(), R, n_i, n_n, n_o, W, tpb,
+            golden_vals.data_ptr(), R, n_i, n_n, n_o, W, tpb, r_tile,
             gates.TT_PACKED, float(gauss_sigma), int(per_bit),
             mag.data_ptr(), ints.data_ptr(), wce.data_ptr(), pops.data_ptr(),
             fpart.data_ptr(), stream)
     if err != 0:
         raise RuntimeError("cgp_sim launch failed: "
                            + lib.cgp_sim_error_string(err).decode())
-    global LAUNCHES
-    LAUNCHES += 1
+    global LAUNCHES, CUBE_LAUNCHES
+    if cube:
+        CUBE_LAUNCHES += 1
+    else:
+        LAUNCHES += 1
     return RawSums(mag, ints, wce, pops, fpart.sum(dim=1))

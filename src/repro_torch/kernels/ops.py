@@ -1,19 +1,24 @@
 """Public entry points of the port's kernels.
 
 The device decides the path: CUDA tensors go through the hand-written
-kernels (``kernels.cgp_sim``, ``kernels.lut_matmul``); CPU tensors go
-through their plain versions in ``kernels.ref``.  There is no fallback
-between the two and no knob: a CUDA tensor launches the kernel or raises.
+kernels (``kernels.cgp_sim``, ``kernels.lut_matmul``,
+``kernels.flash_attention``); CPU tensors go through their plain versions
+in ``kernels.ref``.  There is no fallback between the two: a CUDA tensor
+launches the kernel or raises.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
 from repro_torch.core import metrics as M
 from repro_torch.core.genome import CGPSpec, Genome
 from repro_torch.kernels import cgp_sim as _cgp
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import lut_matmul as _lut
 from repro_torch.kernels import ref
+from repro_torch.kernels import tune as _tune
 
 # The last table staged for the lut_matmul kernel: (int32 LUT tensor, its
 # version counter, staged uint16 table).  A model's projections all use the
@@ -49,21 +54,52 @@ def _partials_from_raw(raw: _cgp.RawSums, n_words: int,
     )
 
 
+def resolve_variant(layout: str, width: int, R: int, device,
+                    block_words: int | None = None,
+                    r_tile: int | None = None) -> _tune.KernelVariant:
+    """The kernel variant a call runs.  ``"auto"`` adopts the tuning
+    table's whole winner for (width, R, the card's backend) — layout, run
+    and group size were timed together — or genome-major on a miss; an
+    explicit knob overrides that knob only."""
+    if layout not in ("auto",) + _cgp.LAYOUTS:
+        raise ValueError(f"layout must be 'auto' or one of {_cgp.LAYOUTS}, "
+                         f"got {layout!r}")
+    if layout == "auto":
+        variant = _tune.resolve_variant(width, R, _tune.backend_key(device))
+    else:
+        variant = _tune.KernelVariant(
+            layout, None, _cgp.DEFAULT_R_TILE if layout == "cube_major" else 1)
+    if block_words is not None:
+        variant = dataclasses.replace(variant, block_words=block_words)
+    if r_tile is not None:
+        variant = dataclasses.replace(variant, r_tile=r_tile)
+    return variant
+
+
 def cgp_eval_batched(genomes: Genome, spec: CGPSpec, in_planes: torch.Tensor,
-                     golden_vals: torch.Tensor, gauss_sigma: float = 256.0
+                     golden_vals: torch.Tensor, gauss_sigma: float = 256.0,
+                     layout: str = "auto", block_words: int | None = None,
+                     r_tile: int | None = None
                      ) -> tuple[M.MetricPartials, torch.Tensor]:
     """Population evaluation in one kernel launch.
 
     ``genomes`` carries a leading axis R: nodes (R, n_n, 3), outs (R, n_o).
     Returns (MetricPartials with leading R, pops (R, n_n) float32).
+    ``layout`` (``"auto"``, ``"genome_major"``, ``"cube_major"``) and the
+    knobs pick the kernel variant (``resolve_variant``); the result is the
+    same function whichever runs.  CPU tensors take ``ref.cgp_eval_ref``,
+    where the layout changes nothing.
     """
+    v = resolve_variant(layout, spec.n_i // 2, genomes.nodes.shape[0],
+                        in_planes.device, block_words, r_tile)
     if in_planes.device.type == "cpu":
         return ref.cgp_eval_ref(genomes, spec, in_planes, golden_vals,
                                 gauss_sigma)
     raw = _cgp.cgp_sim_metrics_batched(
         genomes.nodes.contiguous(), genomes.outs.contiguous(), in_planes,
         golden_vals, n_i=spec.n_i, n_n=spec.n_n, n_o=spec.n_o,
-        gauss_sigma=gauss_sigma)
+        gauss_sigma=gauss_sigma, layout=v.layout,
+        block_words=v.block_words, r_tile=v.r_tile)
     return (_partials_from_raw(raw, in_planes.shape[1], spec.n_o),
             raw.pops.to(torch.float32))
 
@@ -113,3 +149,17 @@ def lut_matmul(a: torch.Tensor, b: torch.Tensor,
     if a.device.type == "cpu":
         return ref.lut_matmul_ref(a, b, lut)
     return _lut.lut_matmul(_as_u8(a, "a"), _as_u8(b, "b"), _staged_table(lut))
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True) -> torch.Tensor:
+    """Attention forward: q (B, Hq, S, D), k/v (B, Hkv, S, D), GQA folded
+    (q-head h uses kv-head ``h // (Hq // Hkv)``); q's dtype out.
+
+    Raises where the reference asserts (each S a multiple of
+    ``min(128, S)``).  CPU tensors take ``ref.flash_attention_ref``; CUDA
+    tensors launch the kernel, which reads the grouped kv-heads in place."""
+    _fa.check_shapes(q, k, v)
+    if q.device.type == "cpu":
+        return ref.flash_attention_ref(q, k, v, causal)
+    return _fa.flash_attention(q, k, v, causal=causal)

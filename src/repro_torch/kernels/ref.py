@@ -42,3 +42,48 @@ def lut_matmul_ref(a: torch.Tensor, b: torch.Tensor,
     rows = max(1, REF_CHUNK_ELEMS // max(1, K * b.shape[1]))
     return torch.cat([flat[a[m:m + rows, :, None] + b[None]].sum(
         dim=1, dtype=torch.int32) for m in range(0, M, rows)], dim=0)
+
+
+#: score elements per pass of ``attention_ref``: (BH, rows, Skv) float32
+#: scores stay near 2^26 elements (256 MB) however long the sequence
+ATTN_CHUNK_ELEMS = 1 << 26
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal: bool = True) -> torch.Tensor:
+    """Naive softmax attention: q (BH, Sq, D), k/v (BH, Skv, D), heads
+    folded.  Float32 scores ``q·k / sqrt(D)``, causal mask ``q_pos >=
+    k_pos`` (−1e30), softmax, ``p·v``; q's dtype out.
+
+    Rows are independent, so the query rows go through in passes of as
+    many rows as keep a pass's scores near ``ATTN_CHUNK_ELEMS``: the naive
+    function without S² scores per head at once."""
+    BH, Sq, D = q.shape
+    Skv = k.shape[1]
+    rows = max(1, ATTN_CHUNK_ELEMS // max(1, BH * Skv))
+    kf, vf = k.to(torch.float32), v.to(torch.float32)
+    k_pos = torch.arange(Skv, device=q.device)
+    outs = []
+    for r0 in range(0, Sq, rows):
+        qc = q[:, r0:r0 + rows].to(torch.float32)
+        s = torch.einsum("bqd,bkd->bqk", qc, kf) / (D ** 0.5)
+        if causal:
+            q_pos = torch.arange(r0, r0 + qc.shape[1], device=q.device)
+            s = torch.where((q_pos[:, None] >= k_pos[None, :])[None], s,
+                            -1e30)
+        p = torch.softmax(s, dim=-1)
+        outs.append(torch.einsum("bqk,bkd->bqd", p, vf))
+    return torch.cat(outs, dim=1).to(q.dtype)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True) -> torch.Tensor:
+    """The plain version of ``kernels.flash_attention``: q (B, Hq, S, D),
+    k/v (B, Hkv, S, D), the kv-heads repeated per group and folded into
+    the batch, as the reference folds them, then ``attention_ref``."""
+    B, Hq, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    fold = lambda x: x.repeat_interleave(Hq // Hkv, dim=1).reshape(
+        B * Hq, Skv, D)
+    return attention_ref(q.reshape(B * Hq, Sq, D), fold(k), fold(v),
+                         causal).reshape(B, Hq, Sq, D)

@@ -66,6 +66,15 @@ def main(argv=None):
                          "circuits from --results-dir as fingerprinted LUT "
                          "artifacts + registry.json into DIR, the input of "
                          "`serve --approx-lut`")
+    ap.add_argument("--layout", default="auto",
+                    choices=["auto", "genome_major", "cube_major"],
+                    help="cgp_sim kernel variant: genome_major reads the "
+                         "input cube from device memory per genome, "
+                         "cube_major stages each run of the cube in shared "
+                         "memory and walks a group of genomes over it; auto "
+                         "resolves the measured tuning table "
+                         "(kernels/tune.py).  The runs are the same either "
+                         "way")
     ap.add_argument("--serial", action="store_true",
                     help="reference serial loop instead of the batched engine")
     ap.add_argument("--device", default="cuda",
@@ -81,7 +90,7 @@ def main(argv=None):
 
     cfg = SearchConfig(width=args.width, kind=args.kind, n_n=args.nodes,
                        evolve=EvolveConfig(generations=args.generations,
-                                           lam=args.lam))
+                                           lam=args.lam, layout=args.layout))
     constraints = [parse_constraint(c) for c in args.constraint]
     if args.serial:
         records = run_sweep_serial(cfg, constraints, seeds=range(args.seeds),
@@ -91,7 +100,8 @@ def main(argv=None):
             cfg, constraints, seeds=range(args.seeds),
             sweep=SweepConfig(chunk_size=args.chunk_size,
                               keep_history=args.history,
-                              results_dir=args.results_dir),
+                              results_dir=args.results_dir,
+                              layout=args.layout),
             device=args.device)
         records = result.records
         print(f"[evolve] {result.completed}/{result.n_runs} runs "

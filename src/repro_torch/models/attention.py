@@ -3,10 +3,12 @@ decode against a KV cache.
 
 The port of ``repro/models/attention.py``'s dense path.  ``"blocked"`` (the
 default) and ``"naive"`` are plain tensor code; ``attn_impl="pallas"``
-selects the reference's TPU flash kernel, which is not ported yet (ROADMAP
-B5) and raises rather than giving way to another implementation.  Decode
-uses a cache local to the device; the sequence-sharded cache of the
-reference waits for multi-GPU support (ROADMAP A11).
+selects the flash-attention kernel (``kernels.ops.flash_attention``: the
+hand-written CUDA kernel on the card, its plain version on the CPU) for
+every full-sequence pass — prefill, ``backbone``/``lm_loss``.  Decode uses
+a cache local to the device under every ``attn_impl``, as the reference
+does; the sequence-sharded cache of the reference waits for multi-GPU
+support (ROADMAP A11).
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops as kops
 from repro_torch.models.layers import (apply_rope, dense_init, matmul, param,
                                        rms_norm, rope_angles)
 
@@ -123,9 +126,10 @@ def run_attention(q, k, v, cfg: ModelConfig, causal: bool = True
     if cfg.attn_impl == "naive":
         return naive_attention(q, k, v, causal)
     if cfg.attn_impl == "pallas":
-        raise NotImplementedError(
-            "attn_impl='pallas' selects the flash-attention kernel, which is "
-            "not ported yet (ROADMAP B5); use 'blocked' or 'naive'")
+        # the kernel takes (B, H, S, D): transposed views, no copies
+        out = kops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                   v.transpose(1, 2), causal=causal)
+        return out.transpose(1, 2)
     if cfg.attn_impl != "blocked":
         raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}")
     return blocked_attention(q, k, v, causal, cfg.attn_block_q,

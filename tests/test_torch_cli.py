@@ -67,8 +67,29 @@ def test_cli_help_without_gpu():
     assert out.returncode == 0
     for flag in ("--width", "--kind", "--nodes", "--constraint",
                  "--generations", "--lam", "--seeds", "--chunk-size",
-                 "--history", "--serial", "--device"):
+                 "--history", "--serial", "--device", "--layout"):
         assert flag in out.stdout
+
+
+@pytest.mark.parametrize("layout", ["cube_major", "genome_major"])
+def test_cli_layout_keeps_the_rows(layout, capsys, monkeypatch):
+    args = GRIDS[1] + ["--device", "cpu"]
+    t_evolve.main(args)
+    default = _rows(capsys.readouterr().out)
+    t_evolve.main(args + ["--layout", layout])
+    assert _rows(capsys.readouterr().out) == default
+    # the reference's CLI takes the same spelling
+    monkeypatch.setattr(sys, "argv", ["repro.launch.evolve", *GRIDS[1],
+                                      "--layout", layout])
+    j_evolve.main()
+    assert _rows(capsys.readouterr().out) == default
+
+
+def test_cli_rejects_an_unknown_layout(capsys):
+    with pytest.raises(SystemExit) as exc:
+        t_evolve.main(GRIDS[1] + ["--device", "cpu", "--layout", "rows"])
+    assert exc.value.code == 2
+    assert "--layout" in capsys.readouterr().err
 
 
 def test_chip_smoke_help_without_gpu():

@@ -310,6 +310,48 @@ def test_sweep_config_validates():
     with pytest.raises(ValueError):
         SweepConfig(keep_history="bogus")
     assert SweepConfig(keep_history="summary").results_dir is None
+    with pytest.raises(ValueError, match="layout"):
+        SweepConfig(layout="transposed")
+    assert SweepConfig(layout="cube_major").layout == "cube_major"
+
+
+@pytest.mark.parametrize("where", ["sweep", "evolve"])
+@pytest.mark.parametrize("layout", ["cube_major", "genome_major", "auto"])
+def test_layout_keeps_records_and_fingerprint(where, layout, tmp_path):
+    """The layout is an execution knob (``SweepConfig.layout`` overriding
+    ``EvolveConfig.layout``): records, shards and the grid fingerprint are
+    those of the default, and the fingerprint the JAX package's with the
+    same knob set."""
+    import dataclasses
+    from repro.core.sweep import grid_fingerprint as j_grid_fingerprint
+    from repro.core.sweep import sweep_grid as j_sweep_grid
+    from repro_torch.core.results import SweepResultReader
+    from repro_torch.core.sweep import grid_fingerprint, sweep_grid
+    jcfg, tcfg = _configs(3, "mul", 40, gens=15)
+    cons = [ConstraintSpec(**c) for c in CONSTRAINTS]
+    base = run_sweep_batched(tcfg, cons, SEEDS, SweepConfig(
+        chunk_size=CHUNK, results_dir=str(tmp_path / "base")), device="cpu")
+    if where == "evolve":
+        tcfg = dataclasses.replace(tcfg, evolve=dataclasses.replace(
+            tcfg.evolve, layout=layout))
+        sweep = SweepConfig(chunk_size=CHUNK, results_dir=str(tmp_path / "x"))
+    else:
+        sweep = SweepConfig(chunk_size=CHUNK, results_dir=str(tmp_path / "x"),
+                            layout=layout)
+    other = run_sweep_batched(tcfg, cons, SEEDS, sweep, device="cpu")
+    for a, b in zip(other.records, base.records):
+        assert np.array_equal(a.genome_nodes, b.genome_nodes)
+        assert np.array_equal(a.metrics, b.metrics)
+        assert a.power_rel == b.power_rel and a.feasible == b.feasible
+    assert np.array_equal(other.hist_fit, base.hist_fit)
+    fps = {SweepResultReader(str(tmp_path / d)).manifest["grid_fingerprint"]
+           for d in ("base", "x")}
+    jcfg = dataclasses.replace(jcfg, evolve=dataclasses.replace(
+        jcfg.evolve, layout=layout))
+    want = j_grid_fingerprint(jcfg, j_sweep_grid(
+        [JConstraint(**c) for c in CONSTRAINTS], SEEDS), "full")
+    assert fps == {grid_fingerprint(tcfg, sweep_grid(cons, SEEDS), "full"),
+                   want}
 
 
 def test_single_run_step_matches_evolve():

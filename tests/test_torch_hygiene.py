@@ -14,6 +14,8 @@ PORT = os.path.join(REPO, "src", "repro_torch")
 PORT_FILES = sorted(
     [os.path.join(d, f) for d, _, fs in os.walk(PORT) for f in fs
      if f.endswith(".py")] + [os.path.join(REPO, "chip_smoke.py")])
+CUDA_FILES = sorted(os.path.join(d, f) for d, _, fs in os.walk(PORT)
+                    for f in fs if f.endswith((".cu", ".cuh")))
 
 
 def _imported_modules(path: str) -> set[str]:
@@ -35,8 +37,12 @@ def test_port_files_found():
                 "checkpoint/store.py", "kernels/lut_matmul.py",
                 "kernels/nvcc.py", "models/quant.py", "models/model.py",
                 "configs/llama3_2_1b.py", "launch/serve.py",
-                "launch/export.py"):
+                "launch/export.py", "kernels/tune.py",
+                "kernels/flash_attention.py", "kernels/ref.py"):
         assert mod in names
+    sources = {os.path.relpath(p, PORT) for p in CUDA_FILES}
+    assert sources == {"kernels/csrc/cgp_sim.cu", "kernels/csrc/lut_matmul.cu",
+                       "kernels/csrc/flash_attention.cu"}
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -110,19 +116,58 @@ def test_lut_matmul_never_takes_the_plain_path_off_the_cpu():
 
 
 def test_pallas_attention_raises():
+    """``attn_impl="pallas"`` runs the flash kernel: off the CPU it
+    launches it or raises (never the plain version), and on any device it
+    raises where the reference asserts."""
     import dataclasses
     from repro_torch.configs import llama3_2_1b
     from repro_torch.models import attention
     cfg = dataclasses.replace(llama3_2_1b.reduced(), attn_impl="pallas")
-    q = torch.zeros((1, 4, 8, 8))
-    k = torch.zeros((1, 4, 2, 8))
-    with pytest.raises(NotImplementedError, match="B5"):
+    q = torch.zeros((1, 8, 4, 8), device="meta")
+    k = torch.zeros((1, 8, 2, 8), device="meta")
+    with pytest.raises(ValueError, match="no flash_attention kernel"):
+        attention.run_attention(q, k, k, cfg)
+    q, k = torch.zeros((1, 130, 4, 8)), torch.zeros((1, 130, 2, 8))
+    with pytest.raises(ValueError, match="multiple of"):
+        attention.run_attention(q, k, k, cfg)
+    assert attention.run_attention(q[:, :8], k[:, :8], k[:, :8],
+                                   cfg).shape == (1, 8, 4, 8)
+
+
+def test_unknown_attn_impl_raises():
+    import dataclasses
+    from repro_torch.configs import llama3_2_1b
+    from repro_torch.models import attention
+    cfg = dataclasses.replace(llama3_2_1b.reduced(), attn_impl="flash")
+    q = torch.zeros((1, 8, 4, 8))
+    k = torch.zeros((1, 8, 2, 8))
+    with pytest.raises(ValueError, match="unknown attn_impl"):
         attention.run_attention(q, k, k, cfg)
 
 
+def test_cuda_only_wrappers_raise_for_cpu_tensors():
+    """The kernel wrappers take CUDA tensors only; ``ops`` sends CPU
+    tensors to the plain versions before they are reached."""
+    from repro_torch.core.search import SearchConfig, problem_arrays
+    from repro_torch.kernels import cgp_sim, flash_attention
+    q = torch.zeros((1, 4, 8, 8))
+    with pytest.raises(ValueError, match="no flash_attention kernel"):
+        flash_attention.flash_attention(q, q, q)
+    gold, spec, planes, gvals, _ = problem_arrays(
+        SearchConfig(width=2, kind="mul", n_n=20), "cpu")
+    for layout in cgp_sim.LAYOUTS:
+        with pytest.raises(ValueError, match="no cgp_sim kernel"):
+            cgp_sim.cgp_sim_metrics_batched(
+                gold.nodes[None], gold.outs[None], planes, gvals,
+                n_i=spec.n_i, n_n=spec.n_n, n_o=spec.n_o, layout=layout)
+    assert cgp_sim.LAUNCHES == cgp_sim.CUBE_LAUNCHES == 0
+    assert flash_attention.LAUNCHES == 0
+
+
 def test_no_environment_knobs():
-    """No port module reads the environment to pick a kernel or a path."""
-    for path in PORT_FILES:
+    """No port module or kernel source reads the environment to pick a
+    kernel or a path."""
+    for path in PORT_FILES + CUDA_FILES:
         src = open(path).read()
         assert "os.environ" not in src and "getenv" not in src, path
 

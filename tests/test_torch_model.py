@@ -41,6 +41,11 @@ Q_FLIP_FRACTION = 1e-3         # q one step apart through the whole model
 # moved the reduced model's logits by up to 0.022 in a teacher-forced
 # replay of the serve loop (test_torch_serve)
 APPROX_ATOL = 0.05
+# downstream of attention on the flash path: the JAX kernel's 128-row
+# online softmax and the port's plain naive softmax sum in orders further
+# apart than the two blocked paths, and a layer later near-zero entries of
+# O(1) tensors differ by up to ~4e-6
+PALLAS_ATOL = 1e-5
 B_, S_ = 4, 32
 
 
@@ -115,7 +120,7 @@ def test_rms_norm_and_rope(models):
            JLay.apply_rope(jnp.asarray(q), js, jc))
 
 
-@pytest.mark.parametrize("impl", ["blocked", "naive"])
+@pytest.mark.parametrize("impl", ["blocked", "naive", "pallas"])
 def test_self_attention_and_mlp(models, impl):
     jcfg, tcfg, jp, tp = models
     jcfg = dataclasses.replace(jcfg, attn_impl=impl, attn_block_q=8,
@@ -175,6 +180,27 @@ def test_prefill_decode_and_loss(models):
     tcc = dataclasses.replace(tcfg, loss_vocab_chunk=8)
     _close(TM.lm_loss(tp, _t(toks), _t(toks), tcc),
            JM.lm_loss(jp, jnp.asarray(toks), jnp.asarray(toks), jcc))
+
+
+def test_pallas_prefill_and_loss(models):
+    """``attn_impl="pallas"``: the JAX package's flash kernel (interpret
+    mode) against the port's ``ops.flash_attention`` (its plain version on
+    the CPU), through prefill and ``lm_loss`` (``backbone``)."""
+    jcfg, tcfg, jp, tp = models
+    jcfg = dataclasses.replace(jcfg, attn_impl="pallas")
+    tcfg = dataclasses.replace(tcfg, attn_impl="pallas")
+    toks = _tokens(3)
+    jl, jc = JM.prefill(jp, jnp.asarray(toks), jcfg, max_len=S_ + 2)
+    tl, tc = TM.prefill(tp, _t(toks), tcfg, max_len=S_ + 2)
+    _close(tl, jl, atol=PALLAS_ATOL)
+    for i, lc in enumerate(tc):
+        _close(lc["k"], jc["layer0"]["k"][i], atol=PALLAS_ATOL)
+        _close(lc["v"], jc["layer0"]["v"][i], atol=PALLAS_ATOL)
+    _close(TM.lm_loss(tp, _t(toks), _t(toks), tcfg),
+           JM.lm_loss(jp, jnp.asarray(toks), jnp.asarray(toks), jcfg))
+    # the same function as the blocked path, in another summation order
+    blocked = dataclasses.replace(tcfg, attn_impl="blocked")
+    _close(tl, TM.prefill(tp, _t(toks), blocked)[0], atol=PALLAS_ATOL)
 
 
 def test_init_params_distributions():

@@ -134,6 +134,20 @@ def test_serve_fp32_tokens_match_jax(models):
                                got["outputs"]) == []
 
 
+def test_serve_pallas_tokens_match_jax(models):
+    """``attn_impl="pallas"``: JAX's flash kernel (interpret mode) in its
+    prefills against the port's ``ops.flash_attention`` (the plain version
+    on the CPU); decode keeps the local cache in both."""
+    jcfg, tcfg, jp, tp = models
+    jcfg = dataclasses.replace(jcfg, attn_impl="pallas")
+    tcfg = dataclasses.replace(tcfg, attn_impl="pallas")
+    want = j_serve._serve_loop(jcfg, N_REQ, PROMPT, GEN, SLOTS, 0)
+    got = t_serve._serve_loop(tcfg, tp, N_REQ, PROMPT, GEN, SLOTS, 0, "cpu")
+    assert got["decoded_tokens"] == want["decoded_tokens"] == N_REQ * GEN
+    assert _assert_same_or_tie(jcfg, tcfg, jp, tp, want["outputs"],
+                               got["outputs"]) == []
+
+
 def test_serve_approx_tokens_match_jax_or_tie(models):
     jcfg, tcfg, jp, tp = models
     lut = _lut()
