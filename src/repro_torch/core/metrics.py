@@ -24,10 +24,11 @@ Exactness contract with the reference package:
 from __future__ import annotations
 
 from math import erf, sqrt
-from typing import NamedTuple
+from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 MAE, WCE, ER, MRE, AVG, ACC0, GAUSS = range(7)
 METRIC_NAMES = ("mae", "wce", "er", "mre", "avg", "acc0", "gauss")
@@ -145,6 +146,37 @@ def error_partials(golden: torch.Tensor, cand: torch.Tensor,
         sq_sum=sum_f64(adf * adf),
         rel_sq=sum_f64(relf * relf),
     )
+
+
+def all_reduce_packed(tensors: Sequence[torch.Tensor], op, group
+                      ) -> list[torch.Tensor]:
+    """All-reduce tensors of one dtype and device in ONE collective: they
+    are flattened into one contiguous buffer, reduced with ``op`` over
+    ``group`` and split back into new tensors of their shapes."""
+    dtypes = {t.dtype for t in tensors}
+    if len(dtypes) != 1:
+        raise TypeError(f"one dtype per all-reduce, got "
+                        f"{sorted(map(str, dtypes))}")
+    buf = torch.cat([t.reshape(-1) for t in tensors])
+    dist.all_reduce(buf, op=op, group=group)
+    return [x.reshape(t.shape) for x, t in
+            zip(buf.split([t.numel() for t in tensors]), tensors)]
+
+
+def combine_partials(p: MetricPartials, group) -> MetricPartials:
+    """The partials of the whole cube from each rank's slice: every field
+    all-reduced with SUM over ``group``, ``wce_max`` with MAX (the
+    reference's psum/pmax over an input-space-sharding mesh axis).  The
+    float32 fields are summed in float32, as the reference's psum does."""
+    f32 = ("abs_sum", "rel_sum", "sgn_sum", "sq_sum", "rel_sq")
+    i32 = ("err_count", "acc0_bad", "hist", "count")
+    out = dict(zip(f32, all_reduce_packed(
+        [getattr(p, k) for k in f32], dist.ReduceOp.SUM, group)))
+    out.update(zip(i32, all_reduce_packed(
+        [getattr(p, k) for k in i32], dist.ReduceOp.SUM, group)))
+    out["wce_max"], = all_reduce_packed([p.wce_max], dist.ReduceOp.MAX,
+                                        group)
+    return MetricPartials(**out)
 
 
 def finalize_metrics(p: MetricPartials, n_o: int, gauss_sigma: float,

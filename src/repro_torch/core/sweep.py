@@ -18,6 +18,14 @@ result shard (``core.results``, the reference's schema v3), under a
 manifest keyed by ``grid_fingerprint`` — the same hex digest the JAX
 package computes for the same exhaustive grid, so either package's reader
 opens the other's directory.
+
+``SweepConfig.model_axis`` shards every evaluation's input cube over that
+axis of the active ``parallel.ctx`` mesh: each rank of the axis simulates
+its word slice, the partials are all-reduced (``ops.cgp_eval_batched``
+with a process group), and per-run state, thresholds and keys are
+replicated, so every rank mutates and selects the same way and returns the
+same ``SweepResult``.  Only the rank at coordinate 0 of every mesh axis
+writes the result shards.
 """
 from __future__ import annotations
 
@@ -29,6 +37,7 @@ from typing import Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import random as R
 from repro_torch.core import metrics as M
@@ -41,12 +50,12 @@ from repro_torch.core.genome import CGPSpec, Genome
 from repro_torch.core.power import circuit_cost_from_probs
 from repro_torch.core.results import HISTORY_MODES, SweepResultWriter
 from repro_torch.core.search import CircuitRecord, problem_arrays
+from repro_torch.parallel import ctx
 
-# Fields of the reference's EvolveConfig that its grid fingerprint hashes
-# and the port has no knob for: exhaustive evaluation is the port's only
-# (jnp-equivalent) backend, and island migration is not ported.
+# The field of the reference's EvolveConfig that its grid fingerprint
+# hashes and the port has no knob for: exhaustive evaluation is the port's
+# only (jnp-equivalent) backend.
 _REFERENCE_BACKEND = "jnp"
-_REFERENCE_MIGRATE_EVERY = 64
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,12 +73,20 @@ class SweepConfig:
     kernel variant: ``"auto"``, ``"genome_major"``, ``"cube_major"``) for
     every chunk of this sweep; ``None`` defers to it.  The runs are the same
     under every layout, and the grid fingerprint leaves it out.
+
+    ``model_axis`` names an axis of the ACTIVE ``parallel.ctx`` mesh to
+    shard every evaluation's input cube over (module docstring); the sweep
+    refuses to run without such a mesh.  Selection under MAE/WCE/ER/AVG/
+    ACC0 constraints is the unsharded sweep's (integer-exact partials); the
+    MRE sums are reassociated, so MRE-constrained runs may split at a
+    last-bit tie.  Like ``layout`` it stays out of the grid fingerprint.
     """
     chunk_size: int = 32          # runs per chunk (device-memory bound)
     keep_history: str = "full"
     results_dir: str | None = None
     max_chunks: int | None = None
     layout: str | None = None
+    model_axis: str | None = None  # mesh axis to shard the input cube over
 
     def __post_init__(self):
         if self.chunk_size < 1:
@@ -118,14 +135,16 @@ class SweepResult:
 def evolve_chunk(spec: CGPSpec, cfg: EvolveConfig, golden: Genome,
                  thr_mat: torch.Tensor, in_planes: torch.Tensor,
                  golden_vals: torch.Tensor, golden_power: torch.Tensor,
-                 keys: torch.Tensor):
+                 keys: torch.Tensor, group=None):
     """Evolve ``thr_mat.shape[0]`` runs together: one kernel launch for the
     golden parent, then one per generation.  Histories come back run-major:
     (state, power_rel (C, gens), metrics (C, gens, N_METRICS),
-    fitness (C, gens))."""
-    step = make_batched_generation_step(spec, cfg)
+    fitness (C, gens)).  With ``group``, ``in_planes``/``golden_vals`` are
+    this rank's slice of the cube and every launch is sharded over the
+    group's ranks; everything else is replicated, and so is the result."""
+    step = make_batched_generation_step(spec, cfg, group)
     state0 = init_state_batched(spec, cfg, golden, thr_mat, in_planes,
-                                golden_vals, keys)
+                                golden_vals, keys, group)
     state, (hp, hm, hf) = scan_generations(step, state0, thr_mat, in_planes,
                                            golden_vals, golden_power,
                                            cfg.generations)
@@ -175,14 +194,15 @@ def plan_chunks(sigmas: np.ndarray, chunk_size: int) -> list[tuple[int, int]]:
 def grid_fingerprint(cfg, grid, keep_history: str) -> str:
     """Identity of (problem, grid, history mode) pinned by the results
     manifest: the hex digest ``repro.core.sweep.grid_fingerprint`` gives
-    for the same exhaustive grid run with ``backend="jnp"``, no migration
-    (the reference hashes "full"/"none" as the bools they once were)."""
+    for the same exhaustive grid run with ``backend="jnp"`` and no
+    chunk-level migration (the reference hashes "full"/"none" as the bools
+    they once were)."""
     ecfg = cfg.evolve
     ident = {
         "width": cfg.width, "kind": cfg.kind, "n_n": cfg.n_n,
         "generations": ecfg.generations, "lam": ecfg.lam,
         "mutation_rate": ecfg.mutation_rate, "backend": _REFERENCE_BACKEND,
-        "migrate_every": _REFERENCE_MIGRATE_EVERY,
+        "migrate_every": ecfg.migrate_every,
         "keep_history": {"full": True, "none": False}.get(keep_history,
                                                          keep_history),
         "grid": [(con.describe(), con.gauss_sigma, seed)
@@ -204,16 +224,39 @@ def run_sweep_batched(cfg, constraints: Sequence[ConstraintSpec],
 
     ``cfg`` is a ``search.SearchConfig``; per-run results match the serial
     ``run_search`` path (same PRNG streams, same evaluation semantics).
-    Runs on ``device`` (default: the card).  With ``sweep.results_dir``
-    every finished chunk is committed as one shard (``core.results``).
+    Runs on ``device`` (default: the card; under ``sweep.model_axis``, the
+    mesh's device).  With ``sweep.results_dir`` every finished chunk is
+    committed as one shard (``core.results``).
     """
     sweep = sweep or SweepConfig()
     mode = sweep.keep_history
     grid = sweep_grid(constraints, seeds)
     n_runs = len(grid)
     gens = cfg.evolve.generations
+    group, writes = None, True
+    if sweep.model_axis is not None:
+        mesh = ctx.get_mesh()
+        if mesh is None or sweep.model_axis not in mesh.axis_names:
+            raise ValueError(
+                f"model_axis {sweep.model_axis!r} needs an active "
+                f"parallel.ctx mesh carrying that axis (have: "
+                f"{None if mesh is None else mesh.axis_names})")
+        group = mesh.axis_group(sweep.model_axis)
+        writes = not any(mesh.coords.values())
+        device = mesh.device if device is None else device
     gold, spec, in_planes, gvals, gpower = problem_arrays(cfg, device)
     dev = in_planes.device
+    planes_local, gvals_local = in_planes, gvals
+    if group is not None:
+        n, i = mesh.axis_size(sweep.model_axis), \
+            mesh.axis_index(sweep.model_axis)
+        W = in_planes.shape[1]
+        if W % n:
+            raise ValueError(f"the cube's {W} words do not split over the "
+                             f"{n} ranks of axis {sweep.model_axis!r}")
+        lo, hi = i * W // n, (i + 1) * W // n
+        planes_local = in_planes[:, lo:hi].contiguous()
+        gvals_local = gvals[32 * lo:32 * hi].contiguous()
 
     thr = np.stack([con.thresholds() for con, _ in grid])
     keys = torch.stack([R.PRNGKey(s) for _, s in grid])
@@ -222,7 +265,7 @@ def run_sweep_batched(cfg, constraints: Sequence[ConstraintSpec],
     chunks = plan_chunks(sigmas[perm], sweep.chunk_size)
 
     writer = None
-    if sweep.results_dir:
+    if sweep.results_dir and writes:
         writer = SweepResultWriter(
             sweep.results_dir,
             grid_fingerprint=grid_fingerprint(cfg, grid, mode),
@@ -260,9 +303,10 @@ def run_sweep_batched(cfg, constraints: Sequence[ConstraintSpec],
         if sweep.layout is not None:
             ecfg = dataclasses.replace(ecfg, layout=sweep.layout)
         thr_c = torch.as_tensor(thr[sel], device=dev)
-        state, hp, hm, hf = evolve_chunk(spec, ecfg, gold, thr_c, in_planes,
-                                         gvals, gpower,
-                                         keys[torch.from_numpy(sel)].to(dev))
+        state, hp, hm, hf = evolve_chunk(spec, ecfg, gold, thr_c,
+                                         planes_local, gvals_local, gpower,
+                                         keys[torch.from_numpy(sel)].to(dev),
+                                         group)
         met, prel, ok, emean, estd = characterize_chunk(
             spec, sigma, state.parent.nodes, state.parent.outs, thr_c,
             in_planes, gvals, gpower)
@@ -298,6 +342,9 @@ def run_sweep_batched(cfg, constraints: Sequence[ConstraintSpec],
             writer.write_chunk((start, end), rows)
         done[orig] = True
         ran += n
+    if group is not None and sweep.results_dir:
+        # no rank returns before the writing rank's shards are there
+        dist.all_reduce(torch.zeros(1, device=dev))
     dt = time.perf_counter() - t0
 
     records = [CircuitRecord(

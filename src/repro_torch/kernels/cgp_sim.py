@@ -62,10 +62,23 @@ reproduces the reference's split sum); in the per-bit regime it returns the
 per-bit counts of |d|, max(d, 0) and max(-d, 0), which ``ops`` recombines in
 the reference's float32 order.
 
+Cube sharding (``cgp_sim_metrics_batched_sharded``) replaces the TPU
+wrapper ``repro/kernels/cgp_sim.py:362`` (``cgp_sim_metrics_batched_sharded``,
+reached through ``repro/kernels/ops.py:155``): every rank of a group
+launches the same kernel on its word slice of the cube, and the raw sums
+are all-reduced over the group before ``ops`` decodes them — SUM for the
+magnitude sums (int64), the integer rows, the popcounts and the float64
+rows, MAX for WCE.  The slice launch takes the magnitude regime of the
+whole cube (``total_words``), so the integer rows and magnitude sums equal
+the whole-cube launch's bit for bit, and the float rows differ from it by
+float64 reassociation only.  The all-reduce is ``torch.distributed``,
+playing the part ``psum``/``pmax`` play in the reference; the kernel body
+is the one above.
+
 ``cgp_sim_metrics_batched`` takes CUDA tensors only; its plain version is
-``ref.cgp_eval_ref``, which ``ops`` takes for CPU tensors.  The CUDA source
-is built with ``nvcc`` for ``sm_90a`` at first use (``kernels.nvcc``) and
-loaded with ctypes.
+``ref.cgp_eval_ref``, which ``ops`` takes for CPU tensors (on a slice,
+``ref.cgp_eval_ref_sharded``).  The CUDA source is built with ``nvcc`` for
+``sm_90a`` at first use (``kernels.nvcc``) and loaded with ctypes.
 """
 from __future__ import annotations
 
@@ -74,6 +87,7 @@ import functools
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import gates
 from repro_torch.core import metrics as M
@@ -93,9 +107,14 @@ LAYOUTS = ("genome_major", "cube_major")
 DEFAULT_R_TILE = 8             # cube-major genomes per block by default
 
 # Kernel launches made by ``cgp_sim_metrics_batched`` in this process: the
-# genome-major kernel's and the cube-major kernel's.
+# genome-major kernel's and the cube-major kernel's; those of one genome
+# (R = 1, the reference's ``cgp_sim_metrics``); and the slice launches made
+# by ``cgp_sim_metrics_batched_sharded``.  The last two are also counted in
+# the first two.
 LAUNCHES = 0
 CUBE_LAUNCHES = 0
+SINGLE_LAUNCHES = 0
+SHARDED_LAUNCHES = 0
 
 
 class RawSums(NamedTuple):
@@ -214,7 +233,8 @@ def cgp_sim_metrics_batched(nodes: torch.Tensor, outs: torch.Tensor,
                             n_o: int, gauss_sigma: float = 256.0,
                             layout: str = "genome_major",
                             block_words: int | None = None,
-                            r_tile: int | None = None) -> RawSums:
+                            r_tile: int | None = None,
+                            total_words: int | None = None) -> RawSums:
     """Fused evaluation of R stacked genomes over one input cube.
 
     Args:
@@ -224,8 +244,11 @@ def cgp_sim_metrics_batched(nodes: torch.Tensor, outs: torch.Tensor,
         upstream, in ``ops.cgp_eval_batched``).
       block_words, r_tile: the variant's knobs (module docstring); ``None``
         takes the defaults (``tiles_per_block``'s run; ``DEFAULT_R_TILE``).
+      total_words: the words of the whole cube when ``in_planes`` is a slice
+        of it (default W): it fixes the magnitude regime.
     Returns ``RawSums``; the magnitude regime is ``metrics.exact_sum_per_bit
-    (32·W, n_o)``.  Launches the kernel; raises for tensors not on CUDA.
+    (32·total_words, n_o)``.  Launches the kernel; raises for tensors not on
+    CUDA.
     """
     _check(nodes, outs, in_planes, golden_vals, n_i, n_n, n_o)
     if nodes.device.type != "cuda":
@@ -248,7 +271,7 @@ def cgp_sim_metrics_batched(nodes: torch.Tensor, outs: torch.Tensor,
                          f"shared memory > {MAX_SMEM_BYTES}")
     if cube and -(-R // r_tile) > 65535:
         raise ValueError(f"{-(-R // r_tile)} genome groups exceed the grid")
-    per_bit = M.exact_sum_per_bit(32 * W, n_o)
+    per_bit = M.exact_sum_per_bit(32 * (total_words or W), n_o)
     n_blocks = -(-(-(-W // TILE)) // tpb)
     mag = torch.zeros((R, 3, n_o if per_bit else 1), dtype=torch.int64,
                       device=dev)
@@ -268,9 +291,50 @@ def cgp_sim_metrics_batched(nodes: torch.Tensor, outs: torch.Tensor,
     if err != 0:
         raise RuntimeError("cgp_sim launch failed: "
                            + lib.cgp_sim_error_string(err).decode())
-    global LAUNCHES, CUBE_LAUNCHES
+    global LAUNCHES, CUBE_LAUNCHES, SINGLE_LAUNCHES
     if cube:
         CUBE_LAUNCHES += 1
     else:
         LAUNCHES += 1
+    if R == 1:
+        SINGLE_LAUNCHES += 1
     return RawSums(mag, ints, wce, pops, fpart.sum(dim=1))
+
+
+def all_reduce_raw(raw: RawSums, group) -> RawSums:
+    """The whole cube's ``RawSums`` from each rank's slice: SUM over
+    ``group`` of the magnitude sums, integer rows, popcounts and float64
+    rows, MAX of WCE; one collective per dtype and operation."""
+    sum_ = dist.ReduceOp.SUM
+    mag, = M.all_reduce_packed([raw.mag], sum_, group)
+    ints, pops = M.all_reduce_packed([raw.ints, raw.pops], sum_, group)
+    fsums, = M.all_reduce_packed([raw.fsums], sum_, group)
+    wce, = M.all_reduce_packed([raw.wce], dist.ReduceOp.MAX, group)
+    return RawSums(mag, ints, wce, pops, fsums)
+
+
+def cgp_sim_metrics_batched_sharded(nodes: torch.Tensor, outs: torch.Tensor,
+                                    in_planes: torch.Tensor,
+                                    golden_vals: torch.Tensor, *, group,
+                                    n_i: int, n_n: int, n_o: int,
+                                    gauss_sigma: float = 256.0,
+                                    layout: str = "genome_major",
+                                    block_words: int | None = None,
+                                    r_tile: int | None = None) -> RawSums:
+    """``cgp_sim_metrics_batched`` on this rank's word slice of the cube,
+    all-reduced over ``group`` (module docstring).
+
+    ``in_planes`` (n_i, W/S) and ``golden_vals`` (32·W/S,) are this rank's
+    slice, S the group's size; every rank holds an equal slice.  Returns the
+    cube-global ``RawSums`` on every rank of the group.
+    """
+    global SHARDED_LAUNCHES
+    if nodes.device.type != "cuda":
+        raise ValueError(f"no cgp_sim kernel for device {nodes.device}")
+    total = in_planes.shape[-1] * dist.get_world_size(group)
+    raw = cgp_sim_metrics_batched(
+        nodes, outs, in_planes, golden_vals, n_i=n_i, n_n=n_n, n_o=n_o,
+        gauss_sigma=gauss_sigma, layout=layout, block_words=block_words,
+        r_tile=r_tile, total_words=total)
+    SHARDED_LAUNCHES += 1
+    return all_reduce_raw(raw, group)

@@ -11,6 +11,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import metrics as M
 from repro_torch.core.genome import CGPSpec, Genome
@@ -79,7 +80,7 @@ def resolve_variant(layout: str, width: int, R: int, device,
 def cgp_eval_batched(genomes: Genome, spec: CGPSpec, in_planes: torch.Tensor,
                      golden_vals: torch.Tensor, gauss_sigma: float = 256.0,
                      layout: str = "auto", block_words: int | None = None,
-                     r_tile: int | None = None
+                     r_tile: int | None = None, group=None
                      ) -> tuple[M.MetricPartials, torch.Tensor]:
     """Population evaluation in one kernel launch.
 
@@ -89,18 +90,37 @@ def cgp_eval_batched(genomes: Genome, spec: CGPSpec, in_planes: torch.Tensor,
     knobs pick the kernel variant (``resolve_variant``); the result is the
     same function whichever runs.  CPU tensors take ``ref.cgp_eval_ref``,
     where the layout changes nothing.
+
+    With ``group`` (a ``torch.distributed`` process group) the cube is
+    sharded over its ranks: ``in_planes``/``golden_vals`` are this rank's
+    equal word slice, and what comes back is the whole cube's, on every
+    rank.  CUDA tensors launch ``cgp_sim_metrics_batched_sharded`` (raw sums
+    all-reduced before decoding); CPU tensors take
+    ``ref.cgp_eval_ref_sharded`` (decoded partials combined, as the
+    reference's jnp path does).  The variant resolves by the whole cube's
+    (width, R) and runs on the slice.
     """
     v = resolve_variant(layout, spec.n_i // 2, genomes.nodes.shape[0],
                         in_planes.device, block_words, r_tile)
     if in_planes.device.type == "cpu":
+        if group is not None:
+            return ref.cgp_eval_ref_sharded(genomes, spec, in_planes,
+                                            golden_vals, gauss_sigma, group)
         return ref.cgp_eval_ref(genomes, spec, in_planes, golden_vals,
                                 gauss_sigma)
-    raw = _cgp.cgp_sim_metrics_batched(
-        genomes.nodes.contiguous(), genomes.outs.contiguous(), in_planes,
-        golden_vals, n_i=spec.n_i, n_n=spec.n_n, n_o=spec.n_o,
-        gauss_sigma=gauss_sigma, layout=v.layout,
-        block_words=v.block_words, r_tile=v.r_tile)
-    return (_partials_from_raw(raw, in_planes.shape[1], spec.n_o),
+    kw = dict(n_i=spec.n_i, n_n=spec.n_n, n_o=spec.n_o,
+              gauss_sigma=gauss_sigma, layout=v.layout,
+              block_words=v.block_words, r_tile=v.r_tile)
+    nodes, outs = genomes.nodes.contiguous(), genomes.outs.contiguous()
+    n_words = in_planes.shape[1]
+    if group is None:
+        raw = _cgp.cgp_sim_metrics_batched(nodes, outs, in_planes,
+                                           golden_vals, **kw)
+    else:
+        raw = _cgp.cgp_sim_metrics_batched_sharded(
+            nodes, outs, in_planes, golden_vals, group=group, **kw)
+        n_words *= dist.get_world_size(group)
+    return (_partials_from_raw(raw, n_words, spec.n_o),
             raw.pops.to(torch.float32))
 
 

@@ -3,6 +3,7 @@ references ``chip_smoke.py`` holds the kernels against on the card)."""
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import metrics as M
 from repro_torch.core import simulate
@@ -21,6 +22,20 @@ def cgp_eval_ref(genome: Genome, spec: CGPSpec, in_planes: torch.Tensor,
                                 n_bits=spec.n_o)
     pops = simulate.popcount32(wires[..., spec.n_i:, :]).sum(dim=-1)
     return partials, pops.to(torch.float32)
+
+
+def cgp_eval_ref_sharded(genome: Genome, spec: CGPSpec,
+                         in_planes: torch.Tensor, golden_vals: torch.Tensor,
+                         gauss_sigma: float, group
+                         ) -> tuple[M.MetricPartials, torch.Tensor]:
+    """The plain version of ``kernels.cgp_sim_metrics_batched_sharded``:
+    ``cgp_eval_ref`` on this rank's slice of the cube, then the partials
+    combined over ``group`` (``metrics.combine_partials``) and the popcounts
+    summed — the reference's jnp path under input-space sharding."""
+    partials, pops = cgp_eval_ref(genome, spec, in_planes, golden_vals,
+                                  gauss_sigma)
+    dist.all_reduce(pops, op=dist.ReduceOp.SUM, group=group)
+    return M.combine_partials(partials, group), pops
 
 
 #: rows per chunk of ``lut_matmul_ref``: each chunk gathers an (m, K, N)

@@ -7,6 +7,7 @@ on (JAX's default).  Only the calls the evolution path makes are covered:
 
   * ``PRNGKey(seed)``;
   * ``split(key, n)``, for a key with any leading batch dims;
+  * ``fold_in(key, data)``, ``data`` an integer or an integer tensor;
   * ``randint(key, shape, minval, maxval)``, ``maxval`` may be an array
     broadcast against ``shape`` (per-gene fan-in bounds);
   * ``bernoulli(key, p, shape)`` at float32.
@@ -71,6 +72,15 @@ def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     """(..., 2) -> (..., num, 2) new keys."""
     b1, b2 = _hash(key, (num,))
     return torch.stack([b1, b2], dim=-1)
+
+
+def fold_in(key: torch.Tensor, data) -> torch.Tensor:
+    """JAX's ``fold_in``: the threefry hash of the counter pair
+    ``(0, data as uint32)`` under ``key``.  ``data`` may be a tensor, which
+    broadcasts against the key's leading dims: (..., 2) new keys."""
+    d = torch.as_tensor(data, dtype=torch.int64, device=key.device) & _MASK
+    x1, x2 = threefry2x32(key[..., 0], key[..., 1], torch.zeros_like(d), d)
+    return torch.stack([x1, x2], dim=-1)
 
 
 def random_bits(key: torch.Tensor, shape: tuple[int, ...]) -> torch.Tensor:

@@ -38,7 +38,8 @@ def test_port_files_found():
                 "kernels/nvcc.py", "models/quant.py", "models/model.py",
                 "configs/llama3_2_1b.py", "launch/serve.py",
                 "launch/export.py", "kernels/tune.py",
-                "kernels/flash_attention.py", "kernels/ref.py"):
+                "kernels/flash_attention.py", "kernels/ref.py",
+                "parallel/ctx.py", "parallel/spawn.py", "launch/mesh.py"):
         assert mod in names
     sources = {os.path.relpath(p, PORT) for p in CUDA_FILES}
     assert sources == {"kernels/csrc/cgp_sim.cu", "kernels/csrc/lut_matmul.cu",
@@ -93,6 +94,28 @@ def test_non_cpu_tensors_never_take_the_plain_path():
     g = type(gold)(gold.nodes[None].to("meta"), gold.outs[None].to("meta"))
     with pytest.raises(ValueError, match="no cgp_sim kernel"):
         ops.cgp_eval_batched(g, spec, planes.to("meta"), gvals.to("meta"))
+
+
+def test_sharded_evaluation_never_takes_the_plain_path_off_the_cpu():
+    """A process group changes where the cube lies, not which path a
+    tensor takes: off the CPU the sharded kernel launches or raises, before
+    any collective."""
+    from repro_torch.core.search import SearchConfig, problem_arrays
+    from repro_torch.kernels import cgp_sim, ops
+    gold, spec, planes, gvals, _ = problem_arrays(
+        SearchConfig(width=2, kind="mul", n_n=20), "cpu")
+    g = type(gold)(gold.nodes[None].to("meta"), gold.outs[None].to("meta"))
+    with pytest.raises(ValueError, match="no cgp_sim kernel"):
+        ops.cgp_eval_batched(g, spec, planes.to("meta"), gvals.to("meta"),
+                             group=object())
+    assert cgp_sim.SHARDED_LAUNCHES == 0
+
+
+def test_mesh_default_device_raises_without_a_card(monkeypatch):
+    from repro_torch.parallel import ctx
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ctx.default_device(0)
 
 
 def test_serve_default_device_raises_without_a_card(monkeypatch):
