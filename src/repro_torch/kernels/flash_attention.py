@@ -4,31 +4,41 @@ Replaces the TPU kernel ``repro/kernels/flash_attention.py:25-100``
 (``flash_attention_kernel``, reached through ``flash_attention`` and
 ``repro/kernels/ops.py::flash_attention``).  It computes causal or full
 softmax attention over ``(B, Hq, Sq, D)`` queries and ``(B, Hkv, Skv, D)``
-keys and values, q-head h reading kv-head ``h // (Hq // Hkv)``: q, k and v
-upcast to float32, q scaled by ``1/sqrt(D)`` first, masked logits −1e30, a
-float32 online softmax (running max and denominator), and the output
-``acc / max(l, 1e-30)`` in q's dtype.  The causal mask is ``q_pos >=
-k_pos`` with both positions counted from 0.
+keys and values, q-head h reading kv-head ``h // (Hq // Hkv)``: float32
+scores ``q·k / sqrt(D)``, masked logits −1e30, a float32 online softmax
+(running max and denominator), and the output ``acc / max(l, 1e-30)`` in
+q's dtype.  The causal mask is ``q_pos >= k_pos`` with both positions
+counted from 0.
 
 What bounds it on an H100: operations.  Causal attention needs
 ``4·B·Hq·D·Sq(Sq+1)/2`` FLOPs (QKᵀ and P·V); ``chip_smoke.py`` quotes the
 bound at the card's dense bf16 tensor-core rate, or the q/k/v/o bytes at
-the HBM rate where those are larger.  The design is a simple one: float32
-on the CUDA cores (67 TFLOP/s, a fifteenth of the tensor-core rate), one
-256-thread block per (64-row q tile, batch × head) walking the 64-row kv
-tiles its rows can see, with k and v staged in shared memory and each
-thread holding a 4 × 4 tile of scores and a 4-row slice of the output in
-registers (``csrc/flash_attention.cu``).  GQA is read in place: no repeated
-copy of k and v.  Inputs may be strided views (the model passes
-transposes): the kernel takes element strides, the last dimension
-contiguous.
+the HBM rate where those are larger.  ``plan`` picks one of two bodies of
+``csrc/flash_attention.cu``:
 
-``flash_attention`` takes CUDA tensors only; its plain version is
-``ref.attention_ref``, which ``ops.flash_attention`` takes for CPU tensors.
+* ``"tensor_core"`` — bf16 with D in ``TC_HEAD_DIMS``, the model's path.
+  Warp-specialised: a producer warpgroup (one thread) feeds q, k and v
+  tiles through TMA and mbarriers, two consumer warpgroups run QKᵀ and
+  P·V on ``wgmma``.
+  P·V takes three bf16 terms of P (exact split), so the body spends twice
+  the function's tensor-core work; a single bf16 P misses the bf16
+  tolerance ``chip_smoke.py`` holds it to.  TMA reads the tensors in
+  place over their own strides (the model's transposed views included),
+  which must be multiples of 16 bytes on a 16-byte aligned base.
+* ``"cuda_core"`` — float32 (its rtol 1e-5 needs float32 products) and
+  bf16 at D = 8 (the reduced configurations, below one 16-wide ``wgmma``
+  step): float32 FMAs on the CUDA cores, strides in elements.
+
+GQA is read in place: no repeated copy of k and v.  ``flash_attention``
+takes CUDA tensors only; its plain version is ``ref.attention_ref``,
+which ``ops.flash_attention`` takes for CPU tensors.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
+import re
 
 import torch
 
@@ -36,13 +46,115 @@ from repro_torch.kernels import nvcc
 
 SOURCE = nvcc.CSRC / "flash_attention.cu"
 HEAD_DIMS = (8, 16, 32, 64, 128)
+TC_HEAD_DIMS = (16, 32, 64, 128)   # bf16 head dims of the tensor-core body
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 REF_BLOCK = 128            # the reference's block rows (bq, bkv)
+TC_BLOCK_Q, TC_BLOCK_KV = 128, 64   # 2 consumer warpgroups of 64 q rows
+CORE_BLOCK = 64            # the CUDA-core body's q and kv tile rows
+TMA_ALIGN = 16             # bytes: TMA's stride and base alignment
 
-# Kernel launches made by ``flash_attention`` in this process.
+# Kernel launches made by ``flash_attention`` in this process: all, and
+# those of the tensor-core body.
 LAUNCHES = 0
+TC_LAUNCHES = 0
 
 _LIB = None
+
+
+@dataclasses.dataclass(frozen=True)
+class TmaBox:
+    """One tensor's TMA geometry, innermost first: ``dims`` (D, S, H, B)
+    in elements, ``strides`` of S, H, B in bytes, ``box`` (columns, rows,
+    1, 1) in elements — columns the 32/64/128-byte swizzle span."""
+    dims: tuple[int, int, int, int]
+    strides: tuple[int, int, int]
+    box: tuple[int, int, int, int]
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """How ``flash_attention`` launches: the body (``"tensor_core"`` or
+    ``"cuda_core"``), its q and kv tile rows, its grid (x, y), the
+    (q tile, kv tile) pairs it computes, and the TMA geometry of q, k, v
+    (tensor-core body only)."""
+    body: str
+    block_q: int
+    block_kv: int
+    grid: tuple[int, int]
+    tiles: int
+    tma: tuple[TmaBox, TmaBox, TmaBox] | None
+
+
+def _causal_tiles(Sq, Skv, bq, bkv, causal):
+    """(q tile, kv tile) pairs of one batch·head: every kv tile, or those
+    up to each q tile's last valid row."""
+    n_all = -(-Skv // bkv)
+    if not causal:
+        return -(-Sq // bq) * n_all
+    return sum(min(n_all, (min(q0 + bq, Sq) - 1) // bkv + 1)
+               for q0 in range(0, Sq, bq))
+
+
+def _tma_box(shape, strides, rows):
+    """TmaBox of a bf16 (B, H, S, D) tensor read in boxes of ``rows``."""
+    B, H, S, D = shape
+    contiguous = (H * S * D, S * D, D)   # for size-1 dims: never stepped
+    sb, sh, ss = (2 * (st if n > 1 else c) for st, n, c in
+                  zip(strides[:3], (B, H, S), contiguous))
+    return TmaBox((D, S, H, B), (ss, sh, sb), (min(D, 64), rows, 1, 1))
+
+
+def plan(q_shape, kv_shape, dtype, q_strides, k_strides, v_strides,
+         o_strides=None, ptrs=(0, 0, 0, 0), causal=True) -> Plan:
+    """The launch of ``flash_attention`` for q (B, Hq, Sq, D) and k, v
+    (B, Hkv, Skv, D) of ``dtype`` with these element strides (o's default
+    to q's) and data pointers (q, k, v, o).
+
+    bf16 with D in ``TC_HEAD_DIMS`` takes the tensor-core body: every
+    stride but the last (1) a multiple of 16 bytes and every base 16-byte
+    aligned, as TMA reads them.  float32, and bf16 at D = 8, take the
+    CUDA-core body: strides multiples of 4 elements, bases aligned to 4
+    elements.  Raises ``ValueError`` where the strides or pointers do not
+    fit the body (it never copies) and ``TypeError`` for other dtypes."""
+    o_strides = q_strides if o_strides is None else o_strides
+    return _plan(tuple(q_shape), tuple(kv_shape), dtype, tuple(q_strides),
+                 tuple(k_strides), tuple(v_strides), tuple(o_strides),
+                 tuple(p % TMA_ALIGN for p in ptrs), bool(causal))
+
+
+def _plan(q_shape, kv_shape, dtype, q_strides, k_strides, v_strides,
+          o_strides, offsets, causal) -> Plan:
+    """``plan`` of tuples, the pointers as offsets modulo 16 bytes."""
+    B, Hq, Sq, D = q_shape
+    Hkv, Skv = kv_shape[1], kv_shape[2]
+    if dtype not in DTYPES:
+        raise TypeError(f"no flash_attention kernel for {dtype}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"head dim {D} not in {HEAD_DIMS}")
+    item = 2 if dtype == torch.bfloat16 else 4
+    tc = dtype == torch.bfloat16 and D in TC_HEAD_DIMS
+    # element multiple of the strides, byte alignment of the bases
+    mult, align = (TMA_ALIGN // item, TMA_ALIGN) if tc else (4, 4 * item)
+    for name, st, ptr in zip(("q", "k", "v", "out"),
+                             (q_strides, k_strides, v_strides, o_strides),
+                             offsets):
+        if st[3] != 1 or any(x % mult for x in st[:3]) or ptr % align:
+            raise ValueError(
+                f"{name}: the {'tensor-core' if tc else 'CUDA-core'} body "
+                f"needs a contiguous last dimension, strides that are "
+                f"multiples of {mult} elements and a {align}-byte aligned "
+                f"base, got strides {st}, a base {ptr} bytes off 16")
+    if not tc:
+        return Plan("cuda_core", CORE_BLOCK, CORE_BLOCK,
+                    (-(-Sq // CORE_BLOCK), B * Hq),
+                    B * Hq * _causal_tiles(Sq, Skv, CORE_BLOCK, CORE_BLOCK,
+                                           causal), None)
+    kv, bq = (B, Hkv, Skv, D), TC_BLOCK_Q
+    return Plan("tensor_core", bq, TC_BLOCK_KV, (B * Hq, -(-Sq // bq)),
+                B * Hq * _causal_tiles(Sq, Skv, bq, TC_BLOCK_KV, causal),
+                (_tma_box(q_shape, q_strides, bq),
+                 _tma_box(kv, k_strides, TC_BLOCK_KV),
+                 _tma_box(kv, v_strides, TC_BLOCK_KV)))
 
 
 def build() -> nvcc.BuildInfo:
@@ -55,13 +167,41 @@ def _library():
     if _LIB is None:
         lib = ctypes.CDLL(str(build().path))
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        f = ctypes.c_float
         lib.flash_attention_launch.argtypes = (
-            [p, p, p, p] + [i] * 8 + [ctypes.c_float] + [ll] * 12 + [p])
+            [p, p, p, p] + [i] * 8 + [f] + [ll] * 12 + [p])
         lib.flash_attention_launch.restype = i
+        lib.flash_attention_tc_launch.argtypes = (
+            [p, p, p, p, ctypes.POINTER(ll), p])
+        lib.flash_attention_tc_launch.restype = i
+        lib.flash_attention_tc_smem.argtypes = [i]
+        lib.flash_attention_tc_smem.restype = i
         lib.flash_attention_error_string.argtypes = [i]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
         _LIB = lib
     return _LIB
+
+
+def tc_resources(log: str) -> dict[int, dict[str, int]]:
+    """Per head dim of the tensor-core body: registers, stack and spill
+    bytes from nvcc's ptxas report ``log`` (``nvcc.BuildInfo.log``), and
+    the dynamic shared memory it launches with."""
+    out, D = {}, None
+    for line in log.splitlines():
+        hit = re.search(r"Compiling entry function '\S*flash_attention_tc_"
+                        r"kernelILi(\d+)E", line)
+        if hit:
+            D = int(hit.group(1))
+            out[D] = {"smem": _library().flash_attention_tc_smem(D)}
+        elif D is not None and "spill stores" in line:
+            nums = [int(x) for x in re.findall(r"(\d+) bytes", line)]
+            out[D].update(stack=nums[0], spill_stores=nums[1],
+                          spill_loads=nums[2])
+        elif D is not None and "Used" in line and "registers" in line:
+            out[D]["registers"] = int(re.search(r"Used (\d+) registers",
+                                                line).group(1))
+            D = None
+    return out
 
 
 def check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -89,9 +229,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     Args:
       q: (B, Hq, Sq, D); k, v: (B, Hkv, Skv, D) — one dtype (float32 or
         bfloat16), D in ``HEAD_DIMS``, on one CUDA device; any strides
-        with the last dimension contiguous (4-element aligned).
+        ``plan`` takes (the last dimension contiguous).
     Returns (B, Hq, Sq, D) in q's dtype, laid out as q.  Raises for other
-    dtypes, shapes and devices.
+    dtypes, shapes, strides and devices.
     """
     check_shapes(q, k, v)
     dev = q.device
@@ -101,29 +241,47 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q, k, v must share one of {list(DTYPES)}, got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
-    B, Hq, Sq, D = q.shape
-    Hkv, Skv = k.shape[1], k.shape[2]
-    if D not in HEAD_DIMS:
-        raise ValueError(f"head dim {D} not in {HEAD_DIMS}")
     o = torch.empty_like(q)
-    align = 4 * q.element_size()     # the kernel loads 4 elements at once
-    for name, x in (("q", q), ("k", k), ("v", v), ("out", o)):
-        if x.stride(-1) != 1 or any(s % 4 for s in x.stride()[:3]) \
-                or x.data_ptr() % align:
-            raise ValueError(f"{name} must have a contiguous, {align}-byte "
-                             f"aligned last dimension and strides that are "
-                             f"multiples of 4, got {x.stride()}")
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr())
+    pl, tail = _prepared(q.shape, k.shape, q.dtype, q.stride(), k.stride(),
+                         v.stride(), o.stride(),
+                         (ptrs[0] % TMA_ALIGN, ptrs[1] % TMA_ALIGN,
+                          ptrs[2] % TMA_ALIGN, ptrs[3] % TMA_ALIGN),
+                         bool(causal))
     lib = _library()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        err = lib.flash_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            B, Hq, Hkv, Sq, Skv, D, int(causal), DTYPES[q.dtype],
-            1.0 / D ** 0.5, *q.stride()[:3], *k.stride()[:3],
-            *v.stride()[:3], *o.stride()[:3], stream)
+    launch = (lib.flash_attention_tc_launch if pl.body == "tensor_core"
+              else lib.flash_attention_launch)
+    # the raw handle of the current stream, without building a Stream
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    if dev.index == torch.cuda.current_device():
+        err = launch(*ptrs, *tail, stream)
+    else:
+        with torch.cuda.device(dev):
+            err = launch(*ptrs, *tail, stream)
     if err != 0:
         raise RuntimeError("flash_attention launch failed: "
                            + lib.flash_attention_error_string(err).decode())
-    global LAUNCHES
+    global LAUNCHES, TC_LAUNCHES
     LAUNCHES += 1
+    TC_LAUNCHES += pl.body == "tensor_core"
     return o
+
+
+@functools.lru_cache(maxsize=256)
+def _prepared(q_shape, kv_shape, dtype, q_strides, k_strides, v_strides,
+              o_strides, offsets, causal):
+    """(plan, the launcher's arguments between the pointers and the
+    stream), cached: the wrapper runs on every attention call."""
+    pl = _plan(q_shape, kv_shape, dtype, q_strides, k_strides, v_strides,
+               o_strides, offsets, causal)
+    B, Hq, Sq, D = q_shape
+    Hkv, Skv = kv_shape[1], kv_shape[2]
+    if pl.body == "tensor_core":   # one int64 array: see the C launcher
+        params = [x for t in pl.tma for x in (*t.dims, *t.strides, *t.box)]
+        params += [Hq, Hkv, Sq, Skv, D, int(causal), *o_strides[:3],
+                   *pl.grid]
+        return pl, ((ctypes.c_longlong * len(params))(*params),)
+    return pl, (B, Hq, Hkv, Sq, Skv, D, int(causal), DTYPES[dtype],
+                1.0 / D ** 0.5,
+                *q_strides[:3], *k_strides[:3], *v_strides[:3],
+                *o_strides[:3])

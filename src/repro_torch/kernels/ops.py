@@ -179,7 +179,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Raises where the reference asserts (each S a multiple of
     ``min(128, S)``).  CPU tensors take ``ref.flash_attention_ref``; CUDA
     tensors launch the kernel, which reads the grouped kv-heads in place."""
-    _fa.check_shapes(q, k, v)
     if q.device.type == "cpu":
+        _fa.check_shapes(q, k, v)
         return ref.flash_attention_ref(q, k, v, causal)
-    return _fa.flash_attention(q, k, v, causal=causal)
+    return _fa.flash_attention(q, k, v, causal=causal)   # checks them too

@@ -112,3 +112,192 @@ def test_bad_shapes_raise():
     with pytest.raises(ValueError):
         ops.flash_attention(q[0], k[0], v[0])           # not 4-D
 
+
+
+# --------------------------------------------------------------------------
+# The tensor-core body's arithmetic, emulated on the CPU, and its plan
+# --------------------------------------------------------------------------
+
+from repro.kernels import flash_attention as j_fa  # noqa: E402
+from repro_torch.kernels import flash_attention as FA  # noqa: E402
+
+# chip_smoke.py phase 9's bf16 shapes with the body's head dims (D = 8
+# takes the CUDA-core body), S cut to <= 512; (B, Hq, Hkv, S, D), causal
+TC_SHAPES = [((4, 32, 8, 32, 64), True), ((1, 32, 8, 512, 64), True),
+             ((2, 8, 2, 256, 64), False), ((2, 8, 2, 256, 64), True),
+             ((1, 4, 4, 96, 16), True), ((1, 4, 1, 128, 32), False),
+             ((1, 4, 2, 512, 128), True)]
+HI16 = -65536                # 0xffff0000 as an int32 mask
+
+
+def _top16(x):
+    """float32 -> the bf16 of its top 16 bits (rounded toward zero)."""
+    return (x.view(torch.int32) & HI16).view(torch.float32)
+
+
+def _split3(p):
+    """p = hi + mid + lo, each the top 8 significant bits of what is left."""
+    hi = _top16(p)
+    r = p - hi
+    mid = _top16(r)
+    return hi, mid, _top16(r - mid)
+
+
+def _tc_body_emulation(q, k, v, causal, terms=3):
+    """The tensor-core body's numerics in plain PyTorch: raw scores QKᵀ of
+    the bf16 inputs accumulated exactly and rounded to float32; per 64-row
+    kv tile a float32 online softmax in base 2, p = 2^fma(s, c, −m·c) with
+    c = log2(e)/sqrt(D) in float32 and m the running max of the raw
+    scores; P·V with ``terms`` bf16 terms of P (3: the body's exact split;
+    1 or 2: rounded to nearest, for comparison), each product exact and
+    the tile's sum rounded to float32 into a fresh accumulator, folded in
+    as acc·alpha + pv with one FMA; the output acc / max(l, 1e-30) in
+    float32, then bf16."""
+    B, Hq, S, D = q.shape
+    g = Hq // k.shape[1]
+    k = k.repeat_interleave(g, dim=1).to(torch.float64)
+    v = v.repeat_interleave(g, dim=1).to(torch.float64)
+    q = q.to(torch.float64)
+    Skv = k.shape[2]
+    f32 = lambda x: torch.tensor(x, dtype=torch.float32)
+    c = f32(1.0 / D ** 0.5) * f32(1.4426950408889634)
+    fma = lambda a, b, d: (a.double() * b.double() + d.double()).float()
+    m = torch.full((B, Hq, S, 1), -1e30, dtype=torch.float32)
+    l = torch.zeros((B, Hq, S, 1), dtype=torch.float32)
+    acc = torch.zeros((B, Hq, S, D), dtype=torch.float32)
+    qp = torch.arange(S)[:, None]
+    for k0 in range(0, Skv, FA.TC_BLOCK_KV):
+        kt, vt = k[:, :, k0:k0 + 64], v[:, :, k0:k0 + 64]
+        s = (q @ kt.transpose(-1, -2)).to(torch.float32)
+        if causal:
+            s = torch.where(qp >= torch.arange(k0, k0 + kt.shape[2]), s,
+                            f32(-1e30))
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp2((m - m_new) * c)
+        p = torch.exp2(fma(s, c, -(m_new * c)))
+        l = l * alpha + p.sum(-1, keepdim=True)
+        m = m_new
+        if terms == 3:
+            parts = _split3(p)
+        else:
+            hi = p.to(torch.bfloat16).to(torch.float32)
+            parts = (hi, (p - hi).to(torch.bfloat16).to(torch.float32))
+            parts = parts[:terms]
+        pv = sum(t.to(torch.float64) @ vt for t in parts).to(torch.float32)
+        acc = fma(acc, alpha, pv)
+    return (acc / torch.clamp(l, min=1e-30)).to(torch.bfloat16)
+
+
+def _tc_inputs(shape, seed):
+    B, Hq, Hkv, S, D = shape
+    rng = np.random.default_rng(seed)
+    return tuple(rng.standard_normal((B, h, S, D)).astype(ml_dtypes.bfloat16)
+                 .astype(np.float32) for h in (Hq, Hkv, Hkv))
+
+
+@pytest.mark.parametrize("seed", [1, 2, 3, 4])
+@pytest.mark.parametrize("shape,causal", TC_SHAPES)
+def test_tensor_core_arithmetic_within_the_bf16_tolerance(shape, causal,
+                                                          seed):
+    q, k, v = _tc_inputs(shape, seed)
+    tq, tk, tv = (torch.as_tensor(x).to(torch.bfloat16) for x in (q, k, v))
+    got = _tc_body_emulation(tq, tk, tv, causal).to(torch.float32).numpy()
+    want = ref.flash_attention_ref(tq, tk, tv, causal)
+    _assert_close(got, want.to(torch.float32).numpy(), "bfloat16",
+                  "vs the plain version")
+    B, Hq, Hkv, S, D = shape
+    fold = lambda x: jnp.asarray(np.repeat(x, Hq // x.shape[1], axis=1)
+                                 .reshape(B * Hq, S, D), jnp.bfloat16)
+    jax_out = j_fa.flash_attention(fold(q), fold(k), fold(v), causal=causal,
+                                   interpret=True)
+    _assert_close(got, np.asarray(jax_out, np.float32).reshape(got.shape),
+                  "bfloat16", "vs the JAX kernel")
+
+
+def test_three_terms_are_exact_and_one_bf16_p_is_not_enough():
+    p = torch.rand(4096, generator=torch.Generator().manual_seed(0)) ** 4
+    hi, mid, lo = _split3(p)
+    for t in (hi, mid, lo):   # each term is a bf16 value
+        assert torch.equal(t, t.to(torch.bfloat16).to(torch.float32))
+    assert torch.equal((hi.double() + mid.double() + lo.double()),
+                       p.double())
+    # P rounded to bf16 once misses the tolerance at the serve shape
+    q, k, v = (torch.as_tensor(x).to(torch.bfloat16)
+               for x in _tc_inputs((4, 32, 8, 32, 64), 1))
+    one = _tc_body_emulation(q, k, v, True, terms=1).to(torch.float32)
+    with pytest.raises(AssertionError):
+        _assert_close(one.numpy(), ref.flash_attention_ref(
+            q, k, v, True).to(torch.float32).numpy(), "bfloat16", "one term")
+
+
+@pytest.mark.parametrize("dtype,D,body", [
+    (torch.bfloat16, 16, "tensor_core"), (torch.bfloat16, 32, "tensor_core"),
+    (torch.bfloat16, 64, "tensor_core"), (torch.bfloat16, 128, "tensor_core"),
+    (torch.bfloat16, 8, "cuda_core"), (torch.float32, 8, "cuda_core"),
+    (torch.float32, 64, "cuda_core"), (torch.float32, 128, "cuda_core")])
+def test_plan_picks_the_body_by_dtype_and_head_dim(dtype, D, body):
+    q = torch.empty((2, 8, 256, D), dtype=dtype)
+    k = torch.empty((2, 2, 256, D), dtype=dtype)
+    pl = FA.plan(q.shape, k.shape, dtype, q.stride(), k.stride(), k.stride())
+    assert pl.body == body
+    assert (pl.tma is not None) == (body == "tensor_core")
+
+
+@pytest.mark.parametrize("D,S,causal,grid,tiles", [
+    # 256 q tiles of 128 rows; q tile i sees kv tiles 0 .. 2i + 1
+    (64, 32768, True, (32, 256), 32 * (2 * (255 * 256 // 2) + 2 * 256)),
+    (64, 32768, False, (32, 256), 32 * 256 * 512),
+    (128, 32768, True, (32, 256), 32 * (2 * (255 * 256 // 2) + 2 * 256)),
+    (64, 32, True, (32, 1), 32), (64, 96, True, (32, 1), 32 * 2),
+    (16, 256, True, (32, 2), 32 * (2 + 4))])
+def test_plan_grid_and_causal_tiles(D, S, causal, grid, tiles):
+    B, Hq, Hkv = 1, 32, 8
+    q, k = (torch.empty((B, h, 1, D), dtype=torch.bfloat16)
+            .expand(B, h, S, D) for h in (Hq, Hkv))
+    st = lambda h: (h * S * D, S * D, D, 1)
+    pl = FA.plan((B, Hq, S, D), (B, Hkv, S, D), torch.bfloat16, st(Hq),
+                 st(Hkv), st(Hkv), causal=causal)
+    assert (pl.block_q, pl.block_kv) == (128, 64)
+    assert pl.grid == grid and pl.tiles == tiles
+
+
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
+def test_plan_tma_reads_the_models_transposed_views(D):
+    B, S, Hq, Hkv = 4, 256, 32, 8
+    # the model's (B, S, H, D) projections, passed as (B, H, S, D) views
+    q = torch.empty((B, S, Hq, D), dtype=torch.bfloat16).transpose(1, 2)
+    k = torch.empty((B, S, Hkv, D), dtype=torch.bfloat16).transpose(1, 2)
+    v = torch.empty((B, S, Hkv, D), dtype=torch.bfloat16).transpose(1, 2)
+    pl = FA.plan(q.shape, k.shape, torch.bfloat16, q.stride(), k.stride(),
+                 v.stride(), ptrs=(0, 4096, 8192, 12288))
+    tq, tk, tv = pl.tma
+    ch = min(D, 64)               # the box's row: the swizzle span
+    assert tq == FA.TmaBox((D, S, Hq, B), (2 * Hq * D, 2 * D, 2 * S * Hq * D),
+                           (ch, 128, 1, 1))
+    # GQA: k and v keep their Hkv heads; the kernel maps q-head h to h / 4
+    for t in (tk, tv):
+        assert t == FA.TmaBox((D, S, Hkv, B),
+                              (2 * Hkv * D, 2 * D, 2 * S * Hkv * D),
+                              (ch, 64, 1, 1))
+    assert pl.grid == (B * Hq, 2)
+
+
+def test_plan_raises_where_tma_cannot_read():
+    B, H, S, D = 1, 4, 128, 64
+    ok = (H * S * D, S * D, D, 1)
+    shape, bf = (B, H, S, D), torch.bfloat16
+    FA.plan(shape, shape, bf, ok, ok, ok, ptrs=(0, 16, 32, 48))
+    padded = (H * S * (D + 4), S * (D + 4), D + 4, 1)   # rows 136 bytes apart
+    with pytest.raises(ValueError, match="multiples of 8 elements"):
+        FA.plan(shape, shape, bf, ok, padded, ok)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        FA.plan(shape, shape, bf, ok, ok, ok, ptrs=(0, 0, 8, 0))
+    with pytest.raises(ValueError, match="contiguous last dimension"):
+        FA.plan(shape, shape, bf, (H * S * D, S * D, 1, S), ok, ok)
+    # the CUDA-core body takes 4-element strides and aligned bases
+    FA.plan(shape, shape, torch.float32, padded, padded, padded)
+    with pytest.raises(ValueError, match="multiples of 4 elements"):
+        FA.plan(shape, shape, torch.float32, ok, (H * S * 66, S * 66, 66, 1),
+                ok)
+    with pytest.raises(TypeError):
+        FA.plan(shape, shape, torch.float16, ok, ok, ok)
