@@ -10,8 +10,12 @@
 //
 // Two bodies; kernels/flash_attention.py::plan picks one.
 //
-// * The tensor-core body (tc::flash_attention_tc_kernel): bf16, D in 16,
-//   32, 64, 128.  What bounds it is the bf16 tensor-core rate: causal
+// * The tensor-core body (tc::flash_attention_tc_kernel): bf16, D a
+//   multiple of 16 up to 128, instantiated at DP = 16, 32, 64, 128 (the
+//   next one at or above D): the tensor maps keep the true D, so TMA
+//   zero-fills columns D .. DP - 1 of q, k and v; zero columns add nothing
+//   to QKᵀ and give output columns the epilogue does not store.  What
+//   bounds it is the bf16 tensor-core rate: causal
 //   attention needs 4·B·Hq·D·S(S+1)/2 FLOPs in two products, and this body
 //   spends twice that (below).  One block per (128 q rows, batch·head), the
 //   longest causal tiles first: two consumer warpgroups of 64 q rows and
@@ -66,7 +70,12 @@
 //   cudaGetDriverEntryPoint (no -lcuda).
 //
 // * The CUDA-core body (flash_attention_kernel): float32 at every D, and
-//   bf16 at D = 8 (the reduced configurations).  Float32 stays here: its
+//   bf16 at the D the tensor-core body does not take (8, 14, 20, 160,
+//   ...), instantiated at DP = 8, 16, 32, 64, 128, 160, 256 (the next one
+//   at or above D) with columns D .. DP - 1 read as zeros and never
+//   stored.  It loads 4-element vectors where D and the strides are
+//   multiples of 4 (`vec`) and single elements otherwise (a contiguous
+//   row of 14 bf16 values is 28 bytes).  Float32 stays here: its
 //   rtol 1e-5 needs float32 products.  One block of 256 threads per (q
 //   tile of BQ = 64 rows, batch·head), the longest causal tiles first,
 //   walking the kv tiles of BKV = 64 rows that its rows can see, with q
@@ -112,22 +121,41 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
   return make_float4(a.x, a.y, b.x, b.y);
 }
 
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
 __device__ __forceinline__ void store1(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store1(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16_rn(x);
 }
 
-// rows x D of `src` (rows from `row0`, `n_rows` valid, scaled by `scale`)
-// into dst[d][row] with row stride ROWS + PAD: consecutive threads take
-// consecutive rows, so the transposed stores hit consecutive banks
-template <typename T, int D, int ROWS>
+// Columns 4g .. 4g + 3 of a row: a vector load, or (vec false) single
+// elements; columns at or past D are zeros.
+template <typename T>
+__device__ __forceinline__ float4 load_cols(const T* row, int g, int D,
+                                            bool vec) {
+  if (vec) return 4 * g < D ? load4(row + 4 * g) : make_float4(0.f, 0.f, 0.f, 0.f);
+  float x[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) x[j] = 4 * g + j < D ? to_float(row[4 * g + j]) : 0.f;
+  return make_float4(x[0], x[1], x[2], x[3]);
+}
+
+// rows x DP of `src` (rows from `row0`, `n_rows` valid, D columns, scaled
+// by `scale`) into dst[d][row] with row stride ROWS + PAD: consecutive
+// threads take consecutive rows, so the transposed stores hit consecutive
+// banks
+template <typename T, int DP, int ROWS>
 __device__ __forceinline__ void stage_transposed(float* dst, const T* src,
                                                  long long stride, int row0,
-                                                 int n_rows, float scale) {
-  for (int idx = threadIdx.x; idx < ROWS * (D / 4); idx += THREADS) {
+                                                 int n_rows, int D, bool vec,
+                                                 float scale) {
+  for (int idx = threadIdx.x; idx < ROWS * (DP / 4); idx += THREADS) {
     const int r = idx % ROWS, g = idx / ROWS;
     float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < n_rows) x = load4(src + (row0 + r) * stride + 4 * g);
+    if (row0 + r < n_rows) x = load_cols(src + (row0 + r) * stride, g, D, vec);
     dst[(4 * g + 0) * (ROWS + PAD) + r] = x.x * scale;
     dst[(4 * g + 1) * (ROWS + PAD) + r] = x.y * scale;
     dst[(4 * g + 2) * (ROWS + PAD) + r] = x.z * scale;
@@ -139,8 +167,10 @@ template <typename T, int D>
 __global__ void __launch_bounds__(THREADS, 2)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ o, int Hq,
-                       int Hkv, int Sq, int Skv, int causal, float scale,
-                       Strides sq, Strides sk, Strides sv, Strides so) {
+                       int Hkv, int Sq, int Skv, int d_true, int vec,
+                       int causal, float scale, Strides sq, Strides sk,
+                       Strides sv, Strides so) {
+  // D is the instantiated head dim, d_true <= D the tensors' own
   constexpr int OC = D >= 16 ? D / 16 : 1;  // output columns per thread
   constexpr int QS = BQ + PAD, KS = BKV + PAD;
   extern __shared__ float4 smem4[];
@@ -160,7 +190,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* vb = v + b * sv.b + hk * sv.h;
   T* ob = o + b * so.b + h * so.h;
 
-  stage_transposed<T, D, BQ>(qT, qb, sq.s, q0, Sq, scale);
+  stage_transposed<T, D, BQ>(qT, qb, sq.s, q0, Sq, d_true, vec, scale);
 
   float m[4], l[4], acc[4][OC];
 #pragma unroll
@@ -178,11 +208,11 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int kt = 0; kt < n_kv; ++kt) {
     const int k0 = kt * BKV;
     __syncthreads();  // the previous tile's readers of kT / vs / pT are done
-    stage_transposed<T, D, BKV>(kT, kb, sk.s, k0, Skv, 1.f);
+    stage_transposed<T, D, BKV>(kT, kb, sk.s, k0, Skv, d_true, vec, 1.f);
     for (int idx = tid; idx < BKV * (D / 4); idx += THREADS) {
       const int g = idx % (D / 4), r = idx / (D / 4);
       float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (k0 + r < Skv) x = load4(vb + (k0 + r) * sv.s + 4 * g);
+      if (k0 + r < Skv) x = load_cols(vb + (k0 + r) * sv.s, g, d_true, vec);
       *reinterpret_cast<float4*>(vs + r * D + 4 * g) = x;
     }
     __syncthreads();
@@ -278,7 +308,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const float denom = fmaxf(l[i], 1e-30f);
 #pragma unroll
       for (int j = 0; j < OC; ++j)
-        store1(ob + qp * so.s + cg * OC + j, acc[i][j] / denom);
+        if (cg * OC + j < d_true)
+          store1(ob + qp * so.s + cg * OC + j, acc[i][j] / denom);
     }
   }
 }
@@ -291,9 +322,9 @@ constexpr size_t smem_bytes() {
 
 template <typename T, int D>
 static int launch(const void* q, const void* k, const void* v, void* o, int B,
-                  int Hq, int Hkv, int Sq, int Skv, int causal, float scale,
-                  Strides sq, Strides sk, Strides sv, Strides so,
-                  cudaStream_t stream) {
+                  int Hq, int Hkv, int Sq, int Skv, int d_true, int vec,
+                  int causal, float scale, Strides sq, Strides sk,
+                  Strides sv, Strides so, cudaStream_t stream) {
   const size_t smem = smem_bytes<D>();
   cudaError_t e = cudaFuncSetAttribute(flash_attention_kernel<T, D>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -302,23 +333,33 @@ static int launch(const void* q, const void* k, const void* v, void* o, int B,
   const dim3 grid((Sq + BQ - 1) / BQ, B * Hq);
   flash_attention_kernel<T, D><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), Hq, Hkv, Sq, Skv, causal,
-      scale, sq, sk, sv, so);
+      static_cast<const T*>(v), static_cast<T*>(o), Hq, Hkv, Sq, Skv, d_true,
+      vec, causal, scale, sq, sk, sv, so);
   return (int)cudaGetLastError();
 }
 
+// The CUDA-core body instantiated at head dim dp (CORE_HEAD_DIMS in
+// kernels/flash_attention.py) for tensors of head dim d_true <= dp.
 template <typename T>
-static int launch_d(int D, const void* q, const void* k, const void* v,
+static int launch_d(int dp, const void* q, const void* k, const void* v,
                     void* o, int B, int Hq, int Hkv, int Sq, int Skv,
-                    int causal, float scale, Strides sq, Strides sk,
-                    Strides sv, Strides so, cudaStream_t stream) {
-  switch (D) {
-    case 8: return launch<T, 8>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, scale, sq, sk, sv, so, stream);
-    case 16: return launch<T, 16>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, scale, sq, sk, sv, so, stream);
-    case 32: return launch<T, 32>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, scale, sq, sk, sv, so, stream);
-    case 64: return launch<T, 64>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, scale, sq, sk, sv, so, stream);
-    case 128: return launch<T, 128>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, scale, sq, sk, sv, so, stream);
+                    int d_true, int vec, int causal, float scale, Strides sq,
+                    Strides sk, Strides sv, Strides so, cudaStream_t stream) {
+#define FA_CORE_CASE(DP)                                                    \
+  case DP:                                                                  \
+    return launch<T, DP>(q, k, v, o, B, Hq, Hkv, Sq, Skv, d_true, vec,      \
+                         causal, scale, sq, sk, sv, so, stream);
+  if (d_true < 1 || d_true > dp) return (int)cudaErrorInvalidValue;
+  switch (dp) {
+    FA_CORE_CASE(8)
+    FA_CORE_CASE(16)
+    FA_CORE_CASE(32)
+    FA_CORE_CASE(64)
+    FA_CORE_CASE(128)
+    FA_CORE_CASE(160)
+    FA_CORE_CASE(256)
   }
+#undef FA_CORE_CASE
   return (int)cudaErrorInvalidValue;
 }
 
@@ -691,8 +732,10 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tk,
                           const __grid_constant__ CUtensorMap tv,
                           __nv_bfloat16* __restrict__ o, int Hq, int Hkv,
-                          int Sq, int Skv, int causal, float scale,
-                          Strides so) {
+                          int Sq, int Skv, int d_true, int causal,
+                          float scale, Strides so) {
+  // D is the instantiated head dim; columns d_true .. D - 1 of the tiles
+  // are TMA's zeros and are not stored
   using G = Geo<D>;
   extern __shared__ uint8_t smem_raw[];
   // tiles on 1024-byte boundaries: the swizzle pattern repeats every 8 rows
@@ -821,9 +864,10 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
         __nv_bfloat16* orow = o + b * so.b + h * so.h + qp * so.s + cq;
 #pragma unroll
         for (int j = 0; j < D / 8; ++j)
-          *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
-              __floats2bfloat162_rn(acc[4 * j + 2 * r] / denom,
-                                    acc[4 * j + 2 * r + 1] / denom);
+          if (D == d_true || 8 * j < d_true)  // d_true: a multiple of 16
+            *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
+                __floats2bfloat162_rn(acc[4 * j + 2 * r] / denom,
+                                      acc[4 * j + 2 * r + 1] / denom);
       }
     }
   }
@@ -877,11 +921,13 @@ template <int D>
 static int launch_tc(const void* q, const void* k, const void* v, void* o,
                      const uint64_t* dims, const uint64_t* strides,
                      const uint32_t* boxes, int Hq, int Hkv, int Sq, int Skv,
-                     int causal, float scale, Strides so, int grid_x,
-                     int grid_y, cudaStream_t stream) {
+                     int d_true, int causal, float scale, Strides so,
+                     int grid_x, int grid_y, cudaStream_t stream) {
   using G = tc::Geo<D>;
-  // the plan's boxes must be the geometry this instantiation reads
-  if (boxes[0] != G::CH || boxes[1] != tc::Q_ROWS || boxes[4] != G::CH ||
+  // the plan's boxes must be the geometry this instantiation reads, over
+  // tensors of head dim d_true (a multiple of 16 up to D)
+  if (d_true > D || d_true % 16 || dims[0] != (uint64_t)d_true ||
+      boxes[0] != G::CH || boxes[1] != tc::Q_ROWS || boxes[4] != G::CH ||
       boxes[5] != tc::KV_ROWS || boxes[8] != G::CH || boxes[9] != tc::KV_ROWS)
     return (int)cudaErrorInvalidValue;
   CUtensorMap tq, tk, tv;
@@ -903,18 +949,20 @@ static int launch_tc(const void* q, const void* k, const void* v, void* o,
   }
   tc::flash_attention_tc_kernel<D><<<dim3(grid_x, grid_y), tc::BLOCK_THREADS,
                                      G::SMEM, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), Hq, Hkv, Sq, Skv, causal,
-      scale, so);
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), Hq, Hkv, Sq, Skv, d_true,
+      causal, scale, so);
   return (int)cudaGetLastError();
 }
 
 extern "C" {
 
-// Launches the CUDA-core body on `stream`; dtype 0 = float32, 1 = bfloat16.
-// Returns the cudaError_t of the launch.
+// Launches the CUDA-core body instantiated at head dim dp on `stream` for
+// tensors of head dim D <= dp, with 4-element vector loads if vec;
+// dtype 0 = float32, 1 = bfloat16.  Returns the cudaError_t of the launch.
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* o, int B, int Hq, int Hkv, int Sq, int Skv,
-                           int D, int causal, int dtype, float scale,
+                           int D, int dp, int vec, int causal, int dtype,
+                           float scale,
                            long long qb, long long qh, long long qs,
                            long long kb, long long kh, long long ks,
                            long long vb, long long vh, long long vs,
@@ -923,19 +971,19 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
   const Strides sq{qb, qh, qs}, sk{kb, kh, ks}, sv{vb, vh, vs}, so{ob, oh, os};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_d<float>(D, q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, scale,
-                           sq, sk, sv, so, s);
+    return launch_d<float>(dp, q, k, v, o, B, Hq, Hkv, Sq, Skv, D, vec,
+                           causal, scale, sq, sk, sv, so, s);
   if (dtype == 1)
-    return launch_d<__nv_bfloat16>(D, q, k, v, o, B, Hq, Hkv, Sq, Skv, causal,
-                                   scale, sq, sk, sv, so, s);
+    return launch_d<__nv_bfloat16>(dp, q, k, v, o, B, Hq, Hkv, Sq, Skv, D,
+                                   vec, causal, scale, sq, sk, sv, so, s);
   return (int)cudaErrorInvalidValue;
 }
 
 // Launches the bf16 tensor-core body on `stream`.  `params` (int64, one
 // array so that a call converts few arguments): the TMA dims (4), byte
 // strides (3) and boxes (4) of q, then of k, then of v; Hq, Hkv, Sq, Skv,
-// D, causal; o's element strides (batch, head, position); the grid (B·Hq,
-// q tiles).  Returns a cudaError_t, or ERR_NO_ENCODER / ERR_ENCODE.
+// D (the tensors'), the instantiated head dim, causal; o's element
+// strides (batch, head, position); the grid (B·Hq, q tiles).  Returns a cudaError_t, or ERR_NO_ENCODER / ERR_ENCODE.
 int flash_attention_tc_launch(const void* q, const void* k, const void* v,
                               void* o, const long long* params,
                               void* stream) {
@@ -949,16 +997,16 @@ int flash_attention_tc_launch(const void* q, const void* k, const void* v,
   }
   const long long* p = params + 33;
   const int Hq = (int)p[0], Hkv = (int)p[1], Sq = (int)p[2], Skv = (int)p[3];
-  const int D = (int)p[4], causal = (int)p[5];
-  const Strides so{p[6], p[7], p[8]};
-  const int gx = (int)p[9], gy = (int)p[10];
-  const float scale = (float)(1.0 / sqrt((double)D));
+  const int D = (int)p[4], dp = (int)p[5], causal = (int)p[6];
+  const Strides so{p[7], p[8], p[9]};
+  const int gx = (int)p[10], gy = (int)p[11];
+  const float scale = (float)(1.0 / sqrt((double)D));  // the true D's
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 16: return launch_tc<16>(q, k, v, o, dims, strides, boxes, Hq, Hkv, Sq, Skv, causal, scale, so, gx, gy, s);
-    case 32: return launch_tc<32>(q, k, v, o, dims, strides, boxes, Hq, Hkv, Sq, Skv, causal, scale, so, gx, gy, s);
-    case 64: return launch_tc<64>(q, k, v, o, dims, strides, boxes, Hq, Hkv, Sq, Skv, causal, scale, so, gx, gy, s);
-    case 128: return launch_tc<128>(q, k, v, o, dims, strides, boxes, Hq, Hkv, Sq, Skv, causal, scale, so, gx, gy, s);
+  switch (dp) {
+    case 16: return launch_tc<16>(q, k, v, o, dims, strides, boxes, Hq, Hkv, Sq, Skv, D, causal, scale, so, gx, gy, s);
+    case 32: return launch_tc<32>(q, k, v, o, dims, strides, boxes, Hq, Hkv, Sq, Skv, D, causal, scale, so, gx, gy, s);
+    case 64: return launch_tc<64>(q, k, v, o, dims, strides, boxes, Hq, Hkv, Sq, Skv, D, causal, scale, so, gx, gy, s);
+    case 128: return launch_tc<128>(q, k, v, o, dims, strides, boxes, Hq, Hkv, Sq, Skv, D, causal, scale, so, gx, gy, s);
   }
   return (int)cudaErrorInvalidValue;
 }

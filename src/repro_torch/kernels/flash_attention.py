@@ -14,9 +14,13 @@ What bounds it on an H100: operations.  Causal attention needs
 ``4·B·Hq·D·Sq(Sq+1)/2`` FLOPs (QKᵀ and P·V); ``chip_smoke.py`` quotes the
 bound at the card's dense bf16 tensor-core rate, or the q/k/v/o bytes at
 the HBM rate where those are larger.  ``plan`` picks one of two bodies of
-``csrc/flash_attention.cu``:
+``csrc/flash_attention.cu`` and the head dim it is instantiated at
+(``Plan.head_dim``, the true D or the next instantiated one above it):
 
-* ``"tensor_core"`` — bf16 with D in ``TC_HEAD_DIMS``, the model's path.
+* ``"tensor_core"`` — bf16 with D a multiple of 16 up to 128, the model's
+  path, instantiated at ``TC_HEAD_DIMS`` (D = 48 runs at 64; 80, 96 and
+  112 at 128: TMA zero-fills the columns past D, which add nothing to QKᵀ
+  and give output columns that are never stored).
   Warp-specialised: a producer warpgroup (one thread) feeds q, k and v
   tiles through TMA and mbarriers, two consumer warpgroups run QKᵀ and
   P·V on ``wgmma``.
@@ -25,10 +29,16 @@ the HBM rate where those are larger.  ``plan`` picks one of two bodies of
   tolerance ``chip_smoke.py`` holds it to.  TMA reads the tensors in
   place over their own strides (the model's transposed views included),
   which must be multiples of 16 bytes on a 16-byte aligned base.
-* ``"cuda_core"`` — float32 (its rtol 1e-5 needs float32 products) and
-  bf16 at D = 8 (the reduced configurations, below one 16-wide ``wgmma``
-  step): float32 FMAs on the CUDA cores, strides in elements.
+* ``"cuda_core"`` — float32 at every D (its rtol 1e-5 needs float32
+  products), and bf16 at the other D (8, the reduced configurations' 14
+  and 20, 160 and any D up to ``MAX_HEAD_DIM``): float32 FMAs on the CUDA
+  cores, instantiated at ``CORE_HEAD_DIMS`` with the columns past D masked
+  on load and store.  It reads 4-element vectors where D, the strides and
+  the bases allow it (``Plan.vector``) and single elements otherwise, so
+  it takes any strides.
 
+The scale is ``1/sqrt(D)`` at the true D in both bodies.  A head dim past
+``MAX_HEAD_DIM`` reaches no kernel and raises.
 GQA is read in place: no repeated copy of k and v.  ``flash_attention``
 takes CUDA tensors only; its plain version is ``ref.attention_ref``,
 which ``ops.flash_attention`` takes for CPU tensors.
@@ -45,8 +55,9 @@ import torch
 from repro_torch.kernels import nvcc
 
 SOURCE = nvcc.CSRC / "flash_attention.cu"
-HEAD_DIMS = (8, 16, 32, 64, 128)
-TC_HEAD_DIMS = (16, 32, 64, 128)   # bf16 head dims of the tensor-core body
+TC_HEAD_DIMS = (16, 32, 64, 128)   # instantiations of the tensor-core body
+CORE_HEAD_DIMS = (8, 16, 32, 64, 128, 160, 256)   # ... of the CUDA-core body
+MAX_HEAD_DIM = CORE_HEAD_DIMS[-1]
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 REF_BLOCK = 128            # the reference's block rows (bq, bkv)
 TC_BLOCK_Q, TC_BLOCK_KV = 128, 64   # 2 consumer warpgroups of 64 q rows
@@ -74,10 +85,13 @@ class TmaBox:
 @dataclasses.dataclass(frozen=True)
 class Plan:
     """How ``flash_attention`` launches: the body (``"tensor_core"`` or
-    ``"cuda_core"``), its q and kv tile rows, its grid (x, y), the
-    (q tile, kv tile) pairs it computes, and the TMA geometry of q, k, v
-    (tensor-core body only)."""
+    ``"cuda_core"``), the head dim it is instantiated at (the true D or the
+    next one above it), whether the CUDA-core body reads 4-element vectors,
+    its q and kv tile rows, its grid (x, y), the (q tile, kv tile) pairs
+    it computes, and the TMA geometry of q, k, v (tensor-core body only)."""
     body: str
+    head_dim: int
+    vector: bool
     block_q: int
     block_kv: int
     grid: tuple[int, int]
@@ -95,13 +109,20 @@ def _causal_tiles(Sq, Skv, bq, bkv, causal):
                for q0 in range(0, Sq, bq))
 
 
-def _tma_box(shape, strides, rows):
-    """TmaBox of a bf16 (B, H, S, D) tensor read in boxes of ``rows``."""
+def _tma_box(shape, strides, rows, head_dim):
+    """TmaBox of a bf16 (B, H, S, D) tensor read in boxes of ``rows`` by
+    the body instantiated at ``head_dim`` >= D (columns past D read as
+    zeros)."""
     B, H, S, D = shape
     contiguous = (H * S * D, S * D, D)   # for size-1 dims: never stepped
     sb, sh, ss = (2 * (st if n > 1 else c) for st, n, c in
                   zip(strides[:3], (B, H, S), contiguous))
-    return TmaBox((D, S, H, B), (ss, sh, sb), (min(D, 64), rows, 1, 1))
+    return TmaBox((D, S, H, B), (ss, sh, sb), (min(head_dim, 64), rows, 1, 1))
+
+
+def _next_dim(D, dims):
+    """The smallest of ``dims`` >= D."""
+    return next(d for d in dims if d >= D)
 
 
 def plan(q_shape, kv_shape, dtype, q_strides, k_strides, v_strides,
@@ -110,12 +131,16 @@ def plan(q_shape, kv_shape, dtype, q_strides, k_strides, v_strides,
     (B, Hkv, Skv, D) of ``dtype`` with these element strides (o's default
     to q's) and data pointers (q, k, v, o).
 
-    bf16 with D in ``TC_HEAD_DIMS`` takes the tensor-core body: every
-    stride but the last (1) a multiple of 16 bytes and every base 16-byte
-    aligned, as TMA reads them.  float32, and bf16 at D = 8, take the
-    CUDA-core body: strides multiples of 4 elements, bases aligned to 4
-    elements.  Raises ``ValueError`` where the strides or pointers do not
-    fit the body (it never copies) and ``TypeError`` for other dtypes."""
+    bf16 with D a multiple of 16 up to 128 takes the tensor-core body at
+    the next ``TC_HEAD_DIMS`` entry: every stride but the last (1) a
+    multiple of 16 bytes and every base 16-byte aligned, as TMA reads
+    them.  float32, and bf16 at other D, take the CUDA-core body at the
+    next ``CORE_HEAD_DIMS`` entry, with any strides: 4-element vector
+    loads where D and every stride are multiples of 4 and every base is
+    aligned to 4 elements, single elements otherwise.  Raises
+    ``ValueError`` for D outside 1..``MAX_HEAD_DIM`` and where the strides
+    or pointers do not fit the tensor-core body (it never copies), and
+    ``TypeError`` for other dtypes."""
     o_strides = q_strides if o_strides is None else o_strides
     return _plan(tuple(q_shape), tuple(kv_shape), dtype, tuple(q_strides),
                  tuple(k_strides), tuple(v_strides), tuple(o_strides),
@@ -129,32 +154,38 @@ def _plan(q_shape, kv_shape, dtype, q_strides, k_strides, v_strides,
     Hkv, Skv = kv_shape[1], kv_shape[2]
     if dtype not in DTYPES:
         raise TypeError(f"no flash_attention kernel for {dtype}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"head dim {D} not in {HEAD_DIMS}")
+    if not 1 <= D <= MAX_HEAD_DIM:
+        raise ValueError(f"head dim {D} outside 1..{MAX_HEAD_DIM}")
     item = 2 if dtype == torch.bfloat16 else 4
-    tc = dtype == torch.bfloat16 and D in TC_HEAD_DIMS
-    # element multiple of the strides, byte alignment of the bases
-    mult, align = (TMA_ALIGN // item, TMA_ALIGN) if tc else (4, 4 * item)
-    for name, st, ptr in zip(("q", "k", "v", "out"),
-                             (q_strides, k_strides, v_strides, o_strides),
-                             offsets):
-        if st[3] != 1 or any(x % mult for x in st[:3]) or ptr % align:
-            raise ValueError(
-                f"{name}: the {'tensor-core' if tc else 'CUDA-core'} body "
-                f"needs a contiguous last dimension, strides that are "
-                f"multiples of {mult} elements and a {align}-byte aligned "
-                f"base, got strides {st}, a base {ptr} bytes off 16")
+    tc = dtype == torch.bfloat16 and D % 16 == 0 and D <= TC_HEAD_DIMS[-1]
+    all_strides = (q_strides, k_strides, v_strides, o_strides)
+    for name, st in zip(("q", "k", "v", "out"), all_strides):
+        if st[3] != 1:
+            raise ValueError(f"{name}: the kernel needs a contiguous last "
+                             f"dimension, got strides {st}")
     if not tc:
-        return Plan("cuda_core", CORE_BLOCK, CORE_BLOCK,
-                    (-(-Sq // CORE_BLOCK), B * Hq),
+        vector = (D % 4 == 0 and all(x % 4 == 0 for st in all_strides
+                                     for x in st[:3])
+                  and all(p % (4 * item) == 0 for p in offsets))
+        return Plan("cuda_core", _next_dim(D, CORE_HEAD_DIMS), vector,
+                    CORE_BLOCK, CORE_BLOCK, (-(-Sq // CORE_BLOCK), B * Hq),
                     B * Hq * _causal_tiles(Sq, Skv, CORE_BLOCK, CORE_BLOCK,
                                            causal), None)
+    mult = TMA_ALIGN // item
+    for name, st, ptr in zip(("q", "k", "v", "out"), all_strides, offsets):
+        if any(x % mult for x in st[:3]) or ptr % TMA_ALIGN:
+            raise ValueError(
+                f"{name}: the tensor-core body needs strides that are "
+                f"multiples of {mult} elements and a {TMA_ALIGN}-byte "
+                f"aligned base, got strides {st}, a base {ptr} bytes off 16")
+    dp = _next_dim(D, TC_HEAD_DIMS)
     kv, bq = (B, Hkv, Skv, D), TC_BLOCK_Q
-    return Plan("tensor_core", bq, TC_BLOCK_KV, (B * Hq, -(-Sq // bq)),
+    return Plan("tensor_core", dp, True, bq, TC_BLOCK_KV,
+                (B * Hq, -(-Sq // bq)),
                 B * Hq * _causal_tiles(Sq, Skv, bq, TC_BLOCK_KV, causal),
-                (_tma_box(q_shape, q_strides, bq),
-                 _tma_box(kv, k_strides, TC_BLOCK_KV),
-                 _tma_box(kv, v_strides, TC_BLOCK_KV)))
+                (_tma_box(q_shape, q_strides, bq, dp),
+                 _tma_box(kv, k_strides, TC_BLOCK_KV, dp),
+                 _tma_box(kv, v_strides, TC_BLOCK_KV, dp)))
 
 
 def build() -> nvcc.BuildInfo:
@@ -169,7 +200,7 @@ def _library():
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         f = ctypes.c_float
         lib.flash_attention_launch.argtypes = (
-            [p, p, p, p] + [i] * 8 + [f] + [ll] * 12 + [p])
+            [p, p, p, p] + [i] * 10 + [f] + [ll] * 12 + [p])
         lib.flash_attention_launch.restype = i
         lib.flash_attention_tc_launch.argtypes = (
             [p, p, p, p, ctypes.POINTER(ll), p])
@@ -228,8 +259,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     Args:
       q: (B, Hq, Sq, D); k, v: (B, Hkv, Skv, D) — one dtype (float32 or
-        bfloat16), D in ``HEAD_DIMS``, on one CUDA device; any strides
-        ``plan`` takes (the last dimension contiguous).
+        bfloat16), D in 1..``MAX_HEAD_DIM``, on one CUDA device; any
+        strides ``plan`` takes (the last dimension contiguous).
     Returns (B, Hq, Sq, D) in q's dtype, laid out as q.  Raises for other
     dtypes, shapes, strides and devices.
     """
@@ -278,10 +309,10 @@ def _prepared(q_shape, kv_shape, dtype, q_strides, k_strides, v_strides,
     Hkv, Skv = kv_shape[1], kv_shape[2]
     if pl.body == "tensor_core":   # one int64 array: see the C launcher
         params = [x for t in pl.tma for x in (*t.dims, *t.strides, *t.box)]
-        params += [Hq, Hkv, Sq, Skv, D, int(causal), *o_strides[:3],
-                   *pl.grid]
+        params += [Hq, Hkv, Sq, Skv, D, pl.head_dim, int(causal),
+                   *o_strides[:3], *pl.grid]
         return pl, ((ctypes.c_longlong * len(params))(*params),)
-    return pl, (B, Hq, Hkv, Sq, Skv, D, int(causal), DTYPES[dtype],
-                1.0 / D ** 0.5,
+    return pl, (B, Hq, Hkv, Sq, Skv, D, pl.head_dim, int(pl.vector),
+                int(causal), DTYPES[dtype], 1.0 / D ** 0.5,
                 *q_strides[:3], *k_strides[:3], *v_strides[:3],
                 *o_strides[:3])

@@ -10,8 +10,9 @@ on the GPU):
   * ``block_words`` — the cube words one block covers: the run a cube-major
     block keeps resident in shared memory.  ``None`` is the kernel's run
     for occupancy (``cgp_sim.tiles_per_block``);
-  * ``r_tile`` — the genomes that share one resident run in cube-major;
-    1 in genome-major, where it has no meaning.
+  * ``r_tile`` — the genomes that share one resident run in cube-major
+    (``None``: the sizing rule's, ``cgp_sim.cube_defaults``); 1 in
+    genome-major, where it has no meaning.
 
 Which combination is fastest depends on the problem shape and the card,
 so this module owns the decision:
@@ -64,11 +65,12 @@ class KernelVariant:
     """One point of the kernel's execution space."""
     layout: str = DEFAULT_LAYOUT
     block_words: int | None = None
-    r_tile: int = 1
+    r_tile: int | None = 1
 
     def key(self) -> str:
         bw = "default" if self.block_words is None else self.block_words
-        return f"{self.layout}/bw{bw}/rt{self.r_tile}"
+        rt = "default" if self.r_tile is None else self.r_tile
+        return f"{self.layout}/bw{bw}/rt{rt}"
 
 
 def table_key(width: int, R: int, backend: str) -> str:

@@ -41,14 +41,14 @@ def _bf16_ulp(x):
     return (mag.view(np.int32) & 0x7F800000).view(np.float32) * 2.0 ** -7
 
 
-def _assert_close(got, want, dtype, what):
+def _assert_close(got, want, dtype, what, atol=ATOL):
     got = np.asarray(got, np.float32)
     want = np.asarray(want, np.float32)
     if dtype == "float32":
-        np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL,
+        np.testing.assert_allclose(got, want, rtol=RTOL, atol=atol,
                                    err_msg=what)
     else:
-        tol = ATOL + RTOL * np.abs(want) + _bf16_ulp(
+        tol = atol + RTOL * np.abs(want) + _bf16_ulp(
             np.maximum(np.abs(got), np.abs(want)))
         assert (np.abs(got - want) <= tol).all(), what
 
@@ -143,7 +143,7 @@ def _split3(p):
     return hi, mid, _top16(r - mid)
 
 
-def _tc_body_emulation(q, k, v, causal, terms=3):
+def _tc_body_emulation(q, k, v, causal, terms=3, scale_dim=None):
     """The tensor-core body's numerics in plain PyTorch: raw scores QKᵀ of
     the bf16 inputs accumulated exactly and rounded to float32; per 64-row
     kv tile a float32 online softmax in base 2, p = 2^fma(s, c, −m·c) with
@@ -152,7 +152,8 @@ def _tc_body_emulation(q, k, v, causal, terms=3):
     1 or 2: rounded to nearest, for comparison), each product exact and
     the tile's sum rounded to float32 into a fresh accumulator, folded in
     as acc·alpha + pv with one FMA; the output acc / max(l, 1e-30) in
-    float32, then bf16."""
+    float32, then bf16.  ``scale_dim``: the head dim of the scale (default
+    D; the true D where the columns past it are zero padding)."""
     B, Hq, S, D = q.shape
     g = Hq // k.shape[1]
     k = k.repeat_interleave(g, dim=1).to(torch.float64)
@@ -160,7 +161,7 @@ def _tc_body_emulation(q, k, v, causal, terms=3):
     q = q.to(torch.float64)
     Skv = k.shape[2]
     f32 = lambda x: torch.tensor(x, dtype=torch.float32)
-    c = f32(1.0 / D ** 0.5) * f32(1.4426950408889634)
+    c = f32(1.0 / (scale_dim or D) ** 0.5) * f32(1.4426950408889634)
     fma = lambda a, b, d: (a.double() * b.double() + d.double()).float()
     m = torch.full((B, Hq, S, 1), -1e30, dtype=torch.float32)
     l = torch.zeros((B, Hq, S, 1), dtype=torch.float32)
@@ -294,10 +295,113 @@ def test_plan_raises_where_tma_cannot_read():
         FA.plan(shape, shape, bf, ok, ok, ok, ptrs=(0, 0, 8, 0))
     with pytest.raises(ValueError, match="contiguous last dimension"):
         FA.plan(shape, shape, bf, (H * S * D, S * D, 1, S), ok, ok)
-    # the CUDA-core body takes 4-element strides and aligned bases
-    FA.plan(shape, shape, torch.float32, padded, padded, padded)
-    with pytest.raises(ValueError, match="multiples of 4 elements"):
-        FA.plan(shape, shape, torch.float32, ok, (H * S * 66, S * 66, 66, 1),
-                ok)
+    # the CUDA-core body takes any strides: 4-element vector loads where
+    # the strides are multiples of 4 elements, single elements otherwise
+    assert FA.plan(shape, shape, torch.float32, padded, padded, padded
+                   ).vector
+    odd = FA.plan(shape, shape, torch.float32, ok,
+                  (H * S * 66, S * 66, 66, 1), ok)
+    assert odd.body == "cuda_core" and not odd.vector
+    with pytest.raises(ValueError, match="contiguous last dimension"):
+        FA.plan(shape, shape, torch.float32, (H * S * D, S * D, 1, S), ok, ok)
     with pytest.raises(TypeError):
         FA.plan(shape, shape, torch.float16, ok, ok, ok)
+
+
+# --------------------------------------------------------------------------
+# Head dims of the configurations beside llama3.2-1b's (kimi-k2: 112,
+# reduced 14; stablelm-12b: 160, reduced 20): the bodies run them at the
+# next instantiated head dim, the columns past D zeros
+# --------------------------------------------------------------------------
+
+OTHER_DIMS = (14, 20, 112, 160)
+D_REF = D                    # the head dim ATOL was set for
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D", OTHER_DIMS)
+def test_any_head_dim_matches_jax(D, causal, dtype):
+    rng = np.random.default_rng(D)
+    S, group = 64, 4
+    q = rng.standard_normal((B, HQ, S, D)).astype(np.float32)
+    k, v = (rng.standard_normal((B, HQ // group, S, D)).astype(np.float32)
+            for _ in range(2))
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    if dtype == "bfloat16":
+        q, k, v = (x.astype(ml_dtypes.bfloat16).astype(np.float32)
+                   for x in (q, k, v))
+    got = ops.flash_attention(*(torch.as_tensor(x).to(getattr(torch, dtype))
+                                for x in (q, k, v)), causal)
+    assert got.shape == (B, HQ, S, D)
+    got = got.to(torch.float32).numpy()
+    fold = lambda x: jnp.asarray(np.repeat(x, HQ // x.shape[1], axis=1)
+                                 .reshape(B * HQ, S, D), jdt)
+    # the absolute float32 tolerance of the D = 16 tests, grown with D: a
+    # score is a float32 sum of D products, taken in another order by each
+    # package (near-zero outputs meet it first)
+    atol = ATOL * max(1.0, D / D_REF)
+    jax_out = j_fa.flash_attention(fold(q), fold(k), fold(v), causal=causal,
+                                   interpret=True)
+    _assert_close(got, np.asarray(jax_out, np.float32).reshape(got.shape),
+                  dtype, "vs the JAX kernel", atol)
+    oracle = j_ref.attention_ref(fold(q), fold(k), fold(v), causal=causal)
+    _assert_close(got, np.asarray(oracle, np.float32).reshape(got.shape),
+                  dtype, "vs the JAX oracle", atol)
+
+
+@pytest.mark.parametrize("dtype,D,body,head_dim,vector", [
+    (torch.bfloat16, 14, "cuda_core", 16, False),
+    (torch.bfloat16, 20, "cuda_core", 32, True),
+    (torch.bfloat16, 112, "tensor_core", 128, True),
+    (torch.bfloat16, 160, "cuda_core", 160, True),
+    (torch.float32, 14, "cuda_core", 16, False),
+    (torch.float32, 20, "cuda_core", 32, True),
+    (torch.float32, 112, "cuda_core", 128, True),
+    (torch.float32, 160, "cuda_core", 160, True),
+    (torch.bfloat16, 48, "tensor_core", 64, True),
+    (torch.bfloat16, 24, "cuda_core", 32, True),
+    (torch.bfloat16, 200, "cuda_core", 256, True),
+    (torch.float32, 1, "cuda_core", 8, False)])
+def test_plan_pads_the_head_dim(dtype, D, body, head_dim, vector):
+    q = torch.empty((2, 8, 256, D), dtype=dtype)
+    k = torch.empty((2, 2, 256, D), dtype=dtype)
+    pl = FA.plan(q.shape, k.shape, dtype, q.stride(), k.stride(), k.stride())
+    assert (pl.body, pl.head_dim, pl.vector) == (body, head_dim, vector)
+    if body == "tensor_core":
+        # the maps keep the true D; the boxes are the padded geometry's
+        for t in pl.tma:
+            assert t.dims[0] == D and t.box[0] == min(head_dim, 64)
+            assert t.strides[0] == 2 * D
+    else:
+        assert pl.tma is None
+
+
+def test_plan_raises_outside_the_head_dims():
+    for D in (0, FA.MAX_HEAD_DIM + 1):
+        shape = (1, 4, 128, D)
+        st = (4 * 128 * D, 128 * D, D, 1)
+        for dtype in (torch.float32, torch.bfloat16):
+            with pytest.raises(ValueError, match="head dim"):
+                FA.plan(shape, shape, dtype, st, st, st)
+    # bf16 at a tensor-core head dim still raises where TMA cannot read
+    shape, st = (1, 4, 128, 112), (4 * 128 * 116, 128 * 116, 116, 1)
+    with pytest.raises(ValueError, match="multiples of 8 elements"):
+        FA.plan(shape, shape, torch.bfloat16, st, st, st)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_zero_padded_columns_keep_the_tensor_core_arithmetic(causal):
+    """D = 112 on the body instantiated at 128: TMA's zero columns and the
+    scale of the true D give the plain version's result within the bf16
+    tolerance; the padded output columns are zero."""
+    shape = (1, 8, 2, 256, 112)
+    q, k, v = (torch.as_tensor(x).to(torch.bfloat16)
+               for x in _tc_inputs(shape, 5))
+    pad = lambda x: torch.nn.functional.pad(x, (0, 16))
+    got = _tc_body_emulation(pad(q), pad(k), pad(v), causal, scale_dim=112)
+    assert not bool(got[..., 112:].to(torch.float32).any())
+    want = ref.flash_attention_ref(q, k, v, causal)
+    _assert_close(got[..., :112].to(torch.float32).numpy(),
+                  want.to(torch.float32).numpy(), "bfloat16",
+                  "padded vs the plain version")

@@ -134,25 +134,29 @@ def test_every_candidate_run_fits_shared_memory(width, n_n):
 
 
 def test_run_tiles():
-    # genome-major and cube-major share tiles_per_block's run by default
+    # the defaults follow the sizing rule: genome-major takes
+    # tiles_per_block's run at its block's occupancy, cube-major
+    # cube_defaults' run (every variant gives the same bits)
+    per_sm = cgp_sim.blocks_by_smem(cgp_sim.smem_bytes(16, 400, 16))
+    warps = cgp_sim.block_warps(16, 400, 16)
     for R_ in (1, 7, 256):
-        want = cgp_sim.tiles_per_block(R_, 2048, 132)
-        for layout in cgp_sim.LAYOUTS:
-            assert cgp_sim.run_tiles(layout, None, R_, 2048, 16, 400, 16,
-                                     132) == want
+        assert cgp_sim.run_tiles("genome_major", None, R_, 2048, 16, 400, 16,
+                                 132) == cgp_sim.tiles_per_block(
+                                     R_, 2048, 132, per_sm, warps)
+        assert cgp_sim.run_tiles("cube_major", None, R_, 2048, 16, 400, 16,
+                                 132) == cgp_sim.cube_defaults(
+                                     R_, 2048, 16, 400, 16, 132)[0]
     assert cgp_sim.run_tiles("cube_major", 512, 256, 2048, 16, 400, 16,
                              132) == 16
     assert cgp_sim.run_tiles("cube_major", 64, 256, 1, 4, 400, 4, 132) == 1
-    # width 10 at R = 7: the default run fits; at R = 1 it is one tile
-    assert cgp_sim.run_tiles("cube_major", None, 7, 32768, 20, 600, 20,
-                             132) == cgp_sim.tiles_per_block(7, 32768, 132)
-    # a default run too long for shared memory is capped, never raised
-    capped = cgp_sim.run_tiles("cube_major", None, 256, 32768, 20, 600, 20,
-                               132)
-    assert capped < cgp_sim.tiles_per_block(256, 32768, 132)
-    assert cgp_sim.smem_bytes(20, 600, 20, capped) <= cgp_sim.MAX_SMEM_BYTES
-    assert cgp_sim.smem_bytes(20, 600, 20, capped + 1) > \
-        cgp_sim.MAX_SMEM_BYTES
+    # width 10: the default cube-major run fits beside a wire plane, and
+    # is never raised
+    for R_ in (7, 256):
+        run = cgp_sim.run_tiles("cube_major", None, R_, 32768, 20, 600, 20,
+                                132)
+        assert cgp_sim.smem_bytes(20, 600, 20, run) <= \
+            cgp_sim.MAX_SMEM_BYTES
+        assert cgp_sim.block_warps(20, 600, 20, run) >= 1
     for bad in (0, 48, -32):
         with pytest.raises(ValueError, match="block_words"):
             cgp_sim.run_tiles("cube_major", bad, 8, 2048, 16, 400, 16, 132)
