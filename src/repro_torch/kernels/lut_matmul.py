@@ -10,23 +10,22 @@ grid:
 every product of an int8 matmul looked up in an evolved multiplier's
 256 × 256 product table, so a model runs on the circuit's exact arithmetic.
 
-What bounds it on an H100: operations.  Each product is one data-dependent
-gather from the table in shared memory (one load on the load/store pipe,
-32 lanes per clock per SM) plus an index multiply-add and an int32 add;
-operands are one byte each, so a prefill projection (128 × 2048 × 8192,
-2.1·10^9 lookups) needs ~0.25 ms of gathers and moves only ~19 MB.  The
-table is the design problem: as int32 it is 256 KB, over the 227 KB a block
-may use.  Every 8×8 artifact comes from an n_o = 16 circuit (entries below
-2^16; the exact table's largest is 65025), so the wrapper stages it as
-uint16 — 128 KB, in dynamic shared memory — after checking every entry is in
-[0, 65535], and raises otherwise.  Blocks are persistent (one per SM, the
-table staged once per block) and walk (output tile, K slice) items; the K
-slice count is chosen so that both prefill (M = 128) and decode (M = 4)
-fill the 132 SMs, and slices add their int32 partials with atomics, which
-is exact.  Lanes gather at data-dependent addresses, so bank conflicts
-(about 3.5-way for random bytes) are expected and not avoided here; nor
-is the 128 KB table load per block.  Edges are bounds-checked, so nothing
-is padded and ``LUT[0, 0]`` needs no correction.
+What bounds it on an H100: shared memory.  A product read straight from
+the 256 × 256 uint16 table in shared memory is a random gather: ~2.8
+passes of the shared-memory pipe per 32 products on uniform bytes.  The
+kernel (``csrc/lut_matmul.cu``, whose header gives the design) instead
+gathers, per k, its BM rows' table rows into a slab indexed by b, so one 8-
+or 16-byte read gives BM products; two products go into one 32-bit add.  A
+block owns BM = 4 (decode, M ≤ 4) or 8 rows and BN = 512, 1024 or 2048
+columns; the table is staged in each block's shared memory by bulk copies
+while the A / B chunks of BK = 8 k stream through a cp.async ring; the K
+slices of a tile are the blocks of one cluster and add their partial tiles
+through distributed shared memory, so C is allocated with
+``torch.empty``.  Only where a tile takes more slices than a cluster holds
+do the clusters add into C atomically, after the launcher zeroes it on the
+stream.  The table's entries must lie in [0, 65535] (uint16);
+``stage_table`` raises otherwise.  Edges are bounds-checked, so nothing is
+padded and ``LUT[0, 0]`` needs no correction.
 
 ``lut_matmul`` takes CUDA tensors only; its plain version is
 ``ref.lut_matmul_ref``, which ``ops.lut_matmul`` takes for CPU tensors.
@@ -44,11 +43,24 @@ import torch
 from repro_torch.kernels import nvcc
 
 SOURCE = nvcc.CSRC / "lut_matmul.cu"
-BK = 32                   # K steps per staged tile
-MIN_SLICE_CHUNKS = 4      # a K slice spans at least 4 · BK = 128 steps
-MAX_SPLITS = 64
-SPLIT_GAIN = 0.05         # busy-share gain that justifies another split
-TILES = {False: (64, 64), True: (4, 256)}  # strip? -> (BM, BN)
+# Mirrors of the source's constants (``Geo``; ``chip_smoke.py`` holds them
+# equal to the built library's)
+BK = 8                    # k a chunk: one slab per warp
+TABLE_BYTES = 256 * 256 * 2
+SMEM_LIMIT = 232448       # shared memory a block may use on an H100
+TNS = (2, 4, 8)           # columns a thread: BN = 256 · TN
+CLUSTERS = (1, 2, 4, 8)   # blocks a cluster (8 is the portable limit)
+# A model of a launch's time in SM clocks, to choose among plans: a chunk's
+# shared-memory passes (slab reads at READ_PASSES per 32 products on
+# uniform bytes, per k a slab build's 9 · BM), PASS_CLOCKS clocks each; an
+# item's fixed cost (start, first loads, epilogue); each atomic add into C,
+# which lands on outputs the other groups add to; zeroing C.  Fitted to
+# the plan sweep of tools/lut_matmul_ablation.py on an H100.
+READ_PASSES = {4: 1.10, 8: 0.81}
+PASS_CLOCKS = 1.6
+ITEM_CLOCKS = 9000
+ATOMIC_CLOCKS = 0.021
+FILL_CLOCKS = 1800
 
 # Kernel launches made by ``lut_matmul`` in this process.
 LAUNCHES = 0
@@ -56,44 +68,122 @@ LAUNCHES = 0
 _LIB = None
 
 
-class Plan(NamedTuple):
-    strip: bool           # 4-row strips (decode) instead of 64 × 64 tiles
-    tiles_n: int
-    n_tiles: int
-    splits: int           # K slices per output tile
-    chunks_per_split: int  # BK-step chunks per slice
-    grid: int             # persistent blocks
-
-
-@functools.lru_cache(maxsize=256)
-def plan(M: int, N: int, K: int, sm_count: int) -> Plan:
-    """Tiles, K split and grid for an (M, K) × (K, N) product.
-
-    The split count raises the busy share of the SM-waves the items take
-    (items / (waves · sm_count)); a further split must gain more than
-    ``SPLIT_GAIN`` of it (every split adds an atomic per output and a
-    partial sum).  Each slice spans whole BK chunks, at least
-    ``MIN_SLICE_CHUNKS`` of them."""
-    strip = M < 32
-    bm, bn = TILES[strip]
-    tiles_n = -(-N // bn)
-    n_tiles = -(-M // bm) * tiles_n
-    chunks = -(-K // BK)
-    best = None
-    for s in range(1, min(MAX_SPLITS, max(1, chunks // MIN_SLICE_CHUNKS)) + 1):
-        per = -(-chunks // s)
-        splits = -(-chunks // per)     # no empty slices
-        items = n_tiles * splits
-        busy = items / (-(-items // sm_count) * sm_count)
-        if best is None or busy > best[0] + SPLIT_GAIN:
-            best = (busy, Plan(strip, tiles_n, n_tiles, splits, per,
-                               min(items, sm_count)))
-    return best[1]
+class Geometry(NamedTuple):
+    """Shared memory of one (BM, TN) instantiation, as ``Geo`` lays it out:
+    the table, BK padded slabs, the ring of stages (B tile, A tile), the
+    mbarrier.  The partial tile reuses the slabs and the ring."""
+    bn: int
+    slab_k: int        # one k's slab: RB · (256 + 32) bytes, RB = 2 · BM
+    stage: int         # BK · BN + BM · BK bytes
+    stages: int
+    smem: int
 
 
 @functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
+def geometry(bm: int, tn: int) -> Geometry:
+    bn, rb = 256 * tn, 2 * bm
+    slab_k = rb * (256 + 32)
+    stage = BK * bn + bm * BK
+    ring = TABLE_BYTES + BK * slab_k
+    stages = 4 if ring + 4 * stage + 16 <= SMEM_LIMIT else 3
+    return Geometry(bn, slab_k, stage, stages, ring + stages * stage + 16)
+
+
+def slab_offset(b, bm: int):
+    """Byte offset of slab row ``b`` within one k's slab: one row of
+    padding after every eight, so a lane's eight transposing stores start
+    at row 9 · lane and hit distinct banks."""
+    return 2 * bm * (b + (b >> 3))
+
+
+class Plan(NamedTuple):
+    bm: int               # rows a tile: 4 (M ≤ 4) or 8
+    tn: int               # columns a thread: BN = 256 · tn
+    tiles_n: int
+    n_tiles: int
+    cs: int               # blocks a cluster: the K slices added in DSMEM
+    groups: int           # clusters a tile; > 1 adds them atomically
+    chunks: int           # BK-step chunks of K, dealt into cs · groups slices
+    clusters: int         # persistent clusters launched
+
+    @property
+    def bn(self) -> int:
+        return 256 * self.tn
+
+    @property
+    def splits(self) -> int:
+        return self.cs * self.groups
+
+    @property
+    def grid(self) -> int:
+        return self.clusters * self.cs
+
+    @property
+    def zero_fill(self) -> bool:
+        return self.groups > 1
+
+    def slice(self, split: int) -> tuple[int, int]:
+        """Chunks [lo, hi) of K slice ``split``, as the kernel deals them."""
+        return (split * self.chunks // self.splits,
+                (split + 1) * self.chunks // self.splits)
+
+
+def tile_shape(M: int, N: int) -> tuple[int, int]:
+    """(BM, TN): 4 rows for decode (M ≤ 4), else 8; the narrowest of 512,
+    1024, 2048 columns that covers N, 2048 past it."""
+    bm = 4 if M <= 4 else 8
+    tn = next((t for t in TNS if 256 * t >= N), TNS[-1])
+    return bm, tn
+
+
+def chunk_clocks(bm: int, tn: int) -> float:
+    """Modelled SM clocks of one chunk of a (bm, 256 · tn) tile."""
+    return PASS_CLOCKS * BK * (bm * 256 * tn * READ_PASSES[bm] / 32 + 9 * bm)
+
+
+def candidates(M: int, N: int, K: int, sm_count: int,
+               slots: tuple[tuple[int, int], ...] | None = None
+               ) -> list[tuple[float, Plan]]:
+    """Every launch plan of an (M, K) × (K, N) product with its modelled
+    clocks: tiles of BM rows and any BN up to ``tile_shape``'s, the K
+    chunks dealt into ``cs · groups`` ≤ chunks slices, clusters of the
+    sizes ``slots`` names, at most as many as it says are resident at once
+    (every size in CLUSTERS, ``sm_count // cs`` of them, without it)."""
+    bm, tn_max = tile_shape(M, N)
+    chunks = -(-K // BK)
+    fit = dict(slots) if slots else {cs: sm_count // cs for cs in CLUSTERS}
+    out = []
+    for tn in (t for t in TNS if t <= tn_max):
+        tiles_n = -(-N // (256 * tn))
+        n_tiles = -(-M // bm) * tiles_n
+        for cs in CLUSTERS:
+            if fit.get(cs, 0) < 1:
+                continue
+            for groups in range(1, chunks // cs + 1):
+                items = n_tiles * groups
+                clusters = min(items, fit[cs])
+                clocks = -(-items // clusters) * (
+                    -(-chunks // (cs * groups)) * chunk_clocks(bm, tn)
+                    + ITEM_CLOCKS)
+                if groups > 1:
+                    clocks += FILL_CLOCKS + ATOMIC_CLOCKS * (
+                        groups * n_tiles * bm * 256 * tn)
+                out.append((clocks, Plan(bm, tn, tiles_n, n_tiles, cs, groups,
+                                         chunks, clusters)))
+    return out
+
+
+@functools.lru_cache(maxsize=256)
+def plan(M: int, N: int, K: int, sm_count: int,
+         slots: tuple[tuple[int, int], ...] | None = None) -> Plan:
+    """The plan of least modelled clocks; ties go to fewer groups (atomic
+    adds), then the larger cluster, then the wider tile."""
+    found = candidates(M, N, K, sm_count, slots)
+    if not found:
+        raise ValueError(f"no launch plan for ({M}, {K}) x ({K}, {N}) on "
+                         f"{sm_count} SMs")
+    return min(found, key=lambda cp: (cp[0], cp[1].groups, -cp[1].cs,
+                                      -cp[1].tn))[1]
 
 
 def build() -> nvcc.BuildInfo:
@@ -101,18 +191,54 @@ def build() -> nvcc.BuildInfo:
     return nvcc.build(SOURCE)
 
 
+def load(path) -> ctypes.CDLL:
+    """A built library with its C interface typed."""
+    lib = ctypes.CDLL(str(path))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.lut_matmul_launch.argtypes = [p, p, p, p] + [i] * 11 + [p]
+    lib.lut_matmul_launch.restype = i
+    for name in ("lut_matmul_smem_bytes", "lut_matmul_stages"):
+        getattr(lib, name).argtypes = [i, i]
+        getattr(lib, name).restype = i
+    lib.lut_matmul_max_clusters.argtypes = [i, i, i]
+    lib.lut_matmul_max_clusters.restype = i
+    lib.lut_matmul_error_string.argtypes = [i]
+    lib.lut_matmul_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def _library():
     global _LIB
     if _LIB is None:
-        lib = ctypes.CDLL(str(build().path))
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.lut_matmul_launch.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i,
-                                          i, p]
-        lib.lut_matmul_launch.restype = i
-        lib.lut_matmul_error_string.argtypes = [i]
-        lib.lut_matmul_error_string.restype = ctypes.c_char_p
-        _LIB = lib
+        _LIB = load(build().path)
     return _LIB
+
+
+@functools.lru_cache(maxsize=None)
+def cluster_slots(index: int) -> tuple[tuple[int, int], ...]:
+    """(cluster size, clusters resident at once) on CUDA device ``index``,
+    from the occupancy API (every instantiation takes one block an SM)."""
+    lib = _library()
+    out = []
+    with torch.cuda.device(index):
+        for cs in CLUSTERS:
+            n = lib.lut_matmul_max_clusters(8, 8, cs)
+            if n < 0:
+                raise RuntimeError(
+                    "lut_matmul occupancy query failed: "
+                    + lib.lut_matmul_error_string(-n).decode())
+            out.append((cs, n))
+    return tuple(out)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def plan_for(M: int, N: int, K: int, index: int) -> Plan:
+    """``plan`` on CUDA device ``index``: its SMs and cluster slots."""
+    return plan(M, N, K, _sm_count(index), cluster_slots(index))
 
 
 def stage_table(lut: torch.Tensor) -> torch.Tensor:
@@ -161,17 +287,24 @@ def lut_matmul(a: torch.Tensor, b: torch.Tensor,
     N = b.shape[1]
     if 0 in (M, N, K):
         raise ValueError(f"empty product ({M}, {K}) x ({K}, {N})")
-    p = plan(M, N, K, _sm_count(dev.index if dev.index is not None
-                                else torch.cuda.current_device()))
-    c = (torch.zeros if p.splits > 1 else torch.empty)(
-        (M, N), dtype=torch.int32, device=dev)
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    return launch(a, b, table, plan_for(M, N, K, index))
+
+
+def launch(a: torch.Tensor, b: torch.Tensor, table: torch.Tensor,
+           p: Plan) -> torch.Tensor:
+    """The kernel under plan ``p`` on operands ``lut_matmul`` has checked
+    (the ablation tool also times other plans through it)."""
+    M, K = a.shape
+    N = b.shape[1]
+    c = torch.empty((M, N), dtype=torch.int32, device=a.device)
     lib = _library()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    with torch.cuda.device(a.device):
         err = lib.lut_matmul_launch(
             a.data_ptr(), b.data_ptr(), table.data_ptr(), c.data_ptr(),
-            M, N, K, int(p.strip), p.tiles_n, p.n_tiles, p.splits,
-            p.chunks_per_split, p.grid, stream)
+            M, N, K, p.bm, p.tn, p.tiles_n, p.n_tiles, p.groups, p.cs,
+            p.chunks, p.clusters, stream)
     if err != 0:
         raise RuntimeError("lut_matmul launch failed: "
                            + lib.lut_matmul_error_string(err).decode())

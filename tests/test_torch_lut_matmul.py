@@ -133,9 +133,12 @@ def test_launch_plan_covers_the_product(M, K_, N):
     """Every (row tile, column tile, k) is owned by exactly one item, and
     the grid never exceeds the SM count."""
     p = K.plan(M, N, K_, 132)
-    bm, bn = K.TILES[p.strip]
+    bm, bn = p.bm, p.bn
     assert p.tiles_n * bn >= N and p.n_tiles * bm * bn >= M * N
     assert 1 <= p.grid <= 132 and p.grid <= p.n_tiles * p.splits
-    span = p.chunks_per_split * K.BK
-    assert (p.splits - 1) * span < K_ <= p.splits * span
-    assert p.strip == (M < 32)
+    spans = [p.slice(s) for s in range(p.splits)]
+    assert spans[0][0] == 0 and (spans[-1][1] - 1) * K.BK < K_
+    assert K_ <= spans[-1][1] * K.BK
+    assert all(lo < hi for lo, hi in spans)
+    assert all(a[1] == b[0] for a, b in zip(spans, spans[1:]))
+    assert p.bm == (4 if M <= 4 else 8)
