@@ -19,13 +19,22 @@ manifest keyed by ``grid_fingerprint`` — the same hex digest the JAX
 package computes for the same exhaustive grid, so either package's reader
 opens the other's directory.
 
+Progress is resumable.  The committed shards are the resume state of a
+``results_dir`` sweep: a rerun of the same grid restores them (a damaged
+shard is quarantined and its chunk runs again) and skips their chunks.
+Without a ``results_dir``, ``SweepConfig.checkpoint_dir`` commits the
+sweep's buffers every ``checkpoint_every`` chunks (``checkpoint.store``, in
+the reference's layout and leaf order) and a rerun resumes from the newest
+step of the same grid fingerprint.  Either package resumes the other's
+shards and checkpoints.
+
 ``SweepConfig.model_axis`` shards every evaluation's input cube over that
 axis of the active ``parallel.ctx`` mesh: each rank of the axis simulates
 its word slice, the partials are all-reduced (``ops.cgp_eval_batched``
 with a process group), and per-run state, thresholds and keys are
 replicated, so every rank mutates and selects the same way and returns the
 same ``SweepResult``.  Only the rank at coordinate 0 of every mesh axis
-writes the result shards.
+writes the result shards and checkpoints.
 """
 from __future__ import annotations
 
@@ -40,15 +49,17 @@ import torch
 import torch.distributed as dist
 
 from repro_torch import random as R
+from repro_torch.checkpoint import store
 from repro_torch.core import metrics as M
-from repro_torch.core import simulate
+from repro_torch.core import pareto, simulate
 from repro_torch.core.evolve import (EvolveConfig, init_state_batched,
                                      make_batched_generation_step,
                                      scan_generations)
 from repro_torch.core.fitness import ConstraintSpec, feasible
 from repro_torch.core.genome import CGPSpec, Genome
 from repro_torch.core.power import circuit_cost_from_probs
-from repro_torch.core.results import HISTORY_MODES, SweepResultWriter
+from repro_torch.core.results import (HISTORY_MODES, SweepResultReader,
+                                      SweepResultWriter)
 from repro_torch.core.search import CircuitRecord, problem_arrays
 from repro_torch.parallel import ctx
 
@@ -67,37 +78,52 @@ class SweepConfig:
     and, with a ``results_dir``, in the shards too; ``"summary"`` writes
     them to the ``results_dir`` shards only (read them back with
     ``SweepResultReader.iter_history``; without a ``results_dir`` they are
-    dropped); ``"none"`` keeps them nowhere.  ``results_dir`` streams one
-    shard per chunk (``core.results``).  ``max_chunks`` stops after that
-    many chunks.  ``layout`` overrides ``cfg.evolve.layout`` (the cgp_sim
-    kernel variant: ``"auto"``, ``"genome_major"``, ``"cube_major"``) for
-    every chunk of this sweep; ``None`` defers to it.  The runs are the same
-    under every layout, and the grid fingerprint leaves it out.
+    dropped); ``"none"`` keeps them nowhere.
+
+    ``results_dir`` streams one shard per chunk (``core.results``), and the
+    shard set is the resume state: a rerun of the same grid skips the
+    committed chunks.  ``checkpoint_dir`` commits the sweep's buffers every
+    ``checkpoint_every`` chunks and at the end (``checkpoint.store``, the
+    newest 3 steps kept); without a ``results_dir`` a rerun resumes from
+    the newest step of this grid.  Steps are named by runs done, so give
+    each grid its own directory.  ``max_chunks`` stops after that many
+    chunks run by this call (restored ones do not count).
+
+    ``layout`` overrides ``cfg.evolve.layout`` (the cgp_sim kernel variant:
+    ``"auto"``, ``"genome_major"``, ``"cube_major"``) for every chunk of
+    this sweep; ``None`` defers to it.  The runs are the same under every
+    layout, and the grid fingerprint leaves it out.
 
     ``model_axis`` names an axis of the ACTIVE ``parallel.ctx`` mesh to
     shard every evaluation's input cube over (module docstring); the sweep
     refuses to run without such a mesh.  Selection under MAE/WCE/ER/AVG/
     ACC0 constraints is the unsharded sweep's (integer-exact partials); the
     MRE sums are reassociated, so MRE-constrained runs may split at a
-    last-bit tie.  Like ``layout`` it stays out of the grid fingerprint.
+    last-bit tie.  Like ``layout``, ``checkpoint_dir`` and
+    ``checkpoint_every``, it stays out of the grid fingerprint.
     """
     chunk_size: int = 32          # runs per chunk (device-memory bound)
+    checkpoint_dir: str | None = None
+    checkpoint_every: int = 1     # chunks between checkpoint commits
     keep_history: str = "full"
     results_dir: str | None = None
-    max_chunks: int | None = None
+    max_chunks: int | None = None  # chunks this call runs, at most
     layout: str | None = None
     model_axis: str | None = None  # mesh axis to shard the input cube over
 
     def __post_init__(self):
         if self.chunk_size < 1:
             raise ValueError(f"chunk_size must be >= 1, got {self.chunk_size}")
-        if self.keep_history not in HISTORY_MODES:
-            raise ValueError(f"keep_history must be one of {HISTORY_MODES}, "
-                             f"got {self.keep_history!r}")
+        if self.checkpoint_every < 1:
+            raise ValueError(
+                f"checkpoint_every must be >= 1, got {self.checkpoint_every}")
         if self.layout not in (None, "auto", "genome_major", "cube_major"):
             raise ValueError(
                 f"layout must be None, 'auto', 'genome_major' or "
                 f"'cube_major', got {self.layout!r}")
+        if self.keep_history not in HISTORY_MODES:
+            raise ValueError(f"keep_history must be one of {HISTORY_MODES}, "
+                             f"got {self.keep_history!r}")
 
 
 @dataclasses.dataclass
@@ -105,13 +131,14 @@ class SweepResult:
     """Stacked output of a (possibly partial) grid sweep.
 
     Run-major arrays are in grid order (constraints outer, seeds inner);
-    ``done_mask`` marks the completed rows and ``records`` holds exactly the
-    completed runs, in grid order.  ``hist_*`` are set only with
-    ``keep_history="full"``.
+    ``done_mask`` marks the completed rows (this call's and the restored
+    ones) and ``records`` holds exactly the completed runs, in grid order.
+    ``hist_*`` are set only with ``keep_history="full"``.
     """
     records: list                      # list[CircuitRecord]
     thresholds: np.ndarray             # (n_runs, N_METRICS)
     metrics: np.ndarray                # (n_runs, N_METRICS) final measurement
+    metrics_stderr: np.ndarray         # (n_runs, N_METRICS) zeros: a census
     power_rel: np.ndarray              # (n_runs,)
     feasible: np.ndarray               # (n_runs,) bool
     best_fit: np.ndarray               # (n_runs,)
@@ -121,15 +148,31 @@ class SweepResult:
     done_mask: np.ndarray              # (n_runs,) bool
     completed: int
     n_runs: int
-    runs_per_sec: float
+    runs_per_sec: float                # this call's runs; 0.0 if none ran
     results_dir: str | None = None     # where the shards went, if streaming
+    certified_mask: np.ndarray | None = None  # (n_runs,) bool: metrics exact
 
     def reader(self):
         """The ``SweepResultReader`` of this sweep's ``results_dir``."""
-        from repro_torch.core.results import SweepResultReader
         if self.results_dir is None:
             raise ValueError("sweep ran without results_dir: no shards")
         return SweepResultReader(self.results_dir)
+
+    def _mask(self, feasible_only: bool) -> np.ndarray:
+        return self.done_mask & (self.feasible if feasible_only else True)
+
+    def correlations(self, feasible_only: bool = True) -> np.ndarray:
+        """|Pearson| cross-metric correlation over completed runs (paper
+        Fig. 6)."""
+        return pareto.metric_correlations(
+            self.metrics[self._mask(feasible_only)])
+
+    def fronts(self, metric_indices: Sequence[int] = (M.MAE, M.ER),
+               feasible_only: bool = True) -> dict[int, np.ndarray]:
+        """Power-vs-metric Pareto fronts (paper Figs. 7-14 axes)."""
+        mask = self._mask(feasible_only)
+        return pareto.sweep_fronts(self.power_rel[mask], self.metrics[mask],
+                                   metric_indices)
 
 
 def evolve_chunk(spec: CGPSpec, cfg: EvolveConfig, golden: Genome,
@@ -215,6 +258,63 @@ def grid_fingerprint(cfg, grid, keep_history: str) -> str:
                                      default=float).encode()).hexdigest()
 
 
+def _alloc_buffers(spec: CGPSpec, n_runs: int, gens: int,
+                   keep_history: str) -> dict[str, np.ndarray]:
+    """Grid-order host buffers under the reference's keys and dtypes (a
+    checkpoint holds exactly these, its leaves in sorted-key order);
+    ``hist_*`` only in "full" mode."""
+    bufs = {
+        "parent_nodes": np.zeros((n_runs, spec.n_n, 3), np.int32),
+        "parent_outs": np.zeros((n_runs, spec.n_o), np.int32),
+        "best_nodes": np.zeros((n_runs, spec.n_n, 3), np.int32),
+        "best_outs": np.zeros((n_runs, spec.n_o), np.int32),
+        "best_fit": np.zeros((n_runs,), np.float32),
+        "metrics": np.zeros((n_runs, M.N_METRICS), np.float32),
+        "metrics_stderr": np.zeros((n_runs, M.N_METRICS), np.float32),
+        "power_rel": np.zeros((n_runs,), np.float32),
+        "feasible": np.zeros((n_runs,), np.uint8),
+        "certified_mask": np.zeros((n_runs,), np.uint8),
+        "error_mean": np.zeros((n_runs,), np.float32),
+        "error_std": np.zeros((n_runs,), np.float32),
+    }
+    if keep_history == "full":
+        bufs["hist_power_rel"] = np.zeros((n_runs, gens), np.float32)
+        bufs["hist_fit"] = np.zeros((n_runs, gens), np.float32)
+        bufs["hist_metrics"] = np.zeros((n_runs, gens, M.N_METRICS),
+                                        np.float32)
+    return bufs
+
+
+def _try_resume(ckpt_dir: str, bufs: dict, fingerprint: str) -> int:
+    """Load the newest committed step OF THIS GRID into ``bufs`` in place;
+    returns the runs it holds (a prefix of the execution order).  Steps are
+    scanned newest first by fingerprint, so another grid's checkpoint in the
+    same directory cannot shadow this grid's."""
+    for step in reversed(store.committed_steps(ckpt_dir)):
+        if store.load_metadata(ckpt_dir, step).get("fingerprint") \
+                != fingerprint:
+            continue
+        tree, meta = store.load_checkpoint(ckpt_dir, step, bufs)
+        for k, v in tree.items():
+            bufs[k][...] = v
+        return int(meta["done"])
+    return 0
+
+
+def _agree_opened(err: BaseException | None, dev) -> None:
+    """A barrier of the world after the writing rank opened (and maybe
+    restored and quarantined) the results directory: every rank reads the
+    directory only after it.  A failure on any rank raises on every rank,
+    instead of leaving the others in the sweep's first collective."""
+    failed = torch.tensor([err is not None], dtype=torch.int32, device=dev)
+    dist.all_reduce(failed)
+    if err is not None:
+        raise err
+    if failed.item():
+        raise RuntimeError("another rank failed to open the results "
+                           "directory")
+
+
 def run_sweep_batched(cfg, constraints: Sequence[ConstraintSpec],
                       seeds: Sequence[int] = (0,),
                       sweep: SweepConfig | None = None,
@@ -226,7 +326,14 @@ def run_sweep_batched(cfg, constraints: Sequence[ConstraintSpec],
     ``run_search`` path (same PRNG streams, same evaluation semantics).
     Runs on ``device`` (default: the card; under ``sweep.model_axis``, the
     mesh's device).  With ``sweep.results_dir`` every finished chunk is
-    committed as one shard (``core.results``).
+    committed as one shard (``core.results``) and the committed shards are
+    the resume state; otherwise resume goes through ``sweep.checkpoint_dir``.
+
+    Under ``sweep.model_axis`` every rank must skip the same chunks, or the
+    ranks' collectives fall out of step: the writing rank restores (and
+    quarantines), every rank passes a barrier, and the other ranks then
+    scatter the same committed shards read-only, or load the same
+    checkpoint step (only the writing rank commits checkpoints).
     """
     sweep = sweep or SweepConfig()
     mode = sweep.keep_history
@@ -264,37 +371,48 @@ def run_sweep_batched(cfg, constraints: Sequence[ConstraintSpec],
     perm = np.argsort(sigmas, kind="stable")
     chunks = plan_chunks(sigmas[perm], sweep.chunk_size)
 
+    bufs = _alloc_buffers(spec, n_runs, gens, mode)
+    fingerprint = grid_fingerprint(cfg, grid, mode)
+    exec_done = np.zeros(n_runs, bool)  # execution-order positions covered
     writer = None
-    if sweep.results_dir and writes:
-        writer = SweepResultWriter(
-            sweep.results_dir,
-            grid_fingerprint=grid_fingerprint(cfg, grid, mode),
-            grid_meta=[{"constraint": con.describe(), "seed": seed,
-                        "gauss_sigma": con.gauss_sigma}
-                       for con, seed in grid],
-            n_runs=n_runs, gens=gens, n_n=spec.n_n, n_o=spec.n_o,
-            keep_history=mode, chunk_size=sweep.chunk_size,
-            chunk_spans=chunks,
-            problem_meta={"width": cfg.width, "kind": cfg.kind,
-                          "n_n": spec.n_n})
-
-    metrics = np.zeros((n_runs, M.N_METRICS), np.float32)
-    power_rel = np.zeros((n_runs,), np.float32)
-    feas = np.zeros((n_runs,), bool)
-    best_fit = np.zeros((n_runs,), np.float32)
-    nodes = np.zeros((n_runs, spec.n_n, 3), np.int32)
-    outs = np.zeros((n_runs, spec.n_o), np.int32)
-    moments = np.zeros((n_runs, 2), np.float32)
-    full = mode == "full"
-    if full:
-        hist_p = np.zeros((n_runs, gens), np.float32)
-        hist_f = np.zeros((n_runs, gens), np.float32)
-        hist_m = np.zeros((n_runs, gens, M.N_METRICS), np.float32)
-    done = np.zeros(n_runs, bool)
+    if sweep.results_dir:
+        restored, err = [], None
+        if writes:
+            try:
+                writer = SweepResultWriter(
+                    sweep.results_dir, grid_fingerprint=fingerprint,
+                    grid_meta=[{"constraint": con.describe(), "seed": seed,
+                                "gauss_sigma": con.gauss_sigma}
+                               for con, seed in grid],
+                    n_runs=n_runs, gens=gens, n_n=spec.n_n, n_o=spec.n_o,
+                    keep_history=mode, chunk_size=sweep.chunk_size,
+                    chunk_spans=chunks,
+                    problem_meta={"width": cfg.width, "kind": cfg.kind,
+                                  "n_n": spec.n_n})
+                # shards commit every chunk (checkpoints only every
+                # checkpoint_every): the freshest resume state
+                restored = writer.restore(bufs)
+            except Exception as e:
+                if group is None:
+                    raise
+                err = e
+        if group is not None:
+            _agree_opened(err, dev)
+            if writer is None:
+                restored = SweepResultReader(sweep.results_dir).restore(bufs)
+        for s, e in restored:
+            exec_done[s:e] = True
+    elif sweep.checkpoint_dir:
+        exec_done[:_try_resume(sweep.checkpoint_dir, bufs, fingerprint)] = \
+            True
 
     t0 = time.perf_counter()
-    ran = 0
-    for start, end in chunks[:sweep.max_chunks]:
+    ran = chunks_run = 0
+    for start, end in chunks:
+        if exec_done[start:end].all():
+            continue               # committed by an earlier call
+        if sweep.max_chunks is not None and chunks_run >= sweep.max_chunks:
+            break
         n = end - start
         sel = perm[np.r_[start:end, np.full(sweep.chunk_size - n, end - 1)]]
         orig = sel[:n]  # grid-order rows this chunk fills
@@ -311,54 +429,71 @@ def run_sweep_batched(cfg, constraints: Sequence[ConstraintSpec],
             spec, sigma, state.parent.nodes, state.parent.outs, thr_c,
             in_planes, gvals, gpower)
         host = lambda x: x.cpu().numpy()[:n]
-        metrics[orig] = host(met)
-        power_rel[orig] = host(prel)
-        feas[orig] = host(ok)
-        best_fit[orig] = host(state.best_fit)
-        nodes[orig] = host(state.parent.nodes)
-        outs[orig] = host(state.parent.outs)
-        moments[orig] = host(torch.stack([emean, estd], dim=1))
-        if full:
-            hist_p[orig], hist_f[orig], hist_m[orig] = (
-                host(hp), host(hf), host(hm))
+        chunk_rows = {
+            "parent_nodes": host(state.parent.nodes),
+            "parent_outs": host(state.parent.outs),
+            "best_nodes": host(state.best.nodes),
+            "best_outs": host(state.best.outs),
+            "best_fit": host(state.best_fit),
+            "metrics": host(met),
+            "metrics_stderr": np.zeros((n, M.N_METRICS), np.float32),
+            "power_rel": host(prel),
+            "feasible": host(ok).astype(np.uint8),
+            "certified_mask": np.ones(n, np.uint8),  # a census is exact
+            "error_mean": host(emean),
+            "error_std": host(estd),
+        }
+        for key, rows in chunk_rows.items():
+            bufs[key][orig] = rows
+        if mode == "full":
+            bufs["hist_power_rel"][orig] = host(hp)
+            bufs["hist_fit"][orig] = host(hf)
+            bufs["hist_metrics"][orig] = host(hm)
         if writer is not None:
-            rows = {
-                "grid_rows": orig.astype(np.int32),
-                "thresholds": thr[orig],
-                "parent_nodes": nodes[orig], "parent_outs": outs[orig],
-                "best_nodes": host(state.best.nodes),
-                "best_outs": host(state.best.outs),
-                "best_fit": best_fit[orig], "metrics": metrics[orig],
-                "metrics_stderr": np.zeros((n, M.N_METRICS), np.float32),
-                "power_rel": power_rel[orig],
-                "feasible": feas[orig].astype(np.uint8),
-                "certified_mask": np.ones(n, np.uint8),  # a census is exact
-                "error_mean": moments[orig, 0],
-                "error_std": moments[orig, 1],
-            }
+            chunk_rows["grid_rows"] = orig.astype(np.int32)
+            chunk_rows["thresholds"] = thr[orig]
             if mode != "none":
-                rows.update(hist_power_rel=host(hp), hist_fit=host(hf),
-                            hist_metrics=host(hm))
-            writer.write_chunk((start, end), rows)
-        done[orig] = True
+                chunk_rows.update(hist_power_rel=host(hp), hist_fit=host(hf),
+                                  hist_metrics=host(hm))
+            writer.write_chunk((start, end), chunk_rows)
+        exec_done[start:end] = True
         ran += n
-    if group is not None and sweep.results_dir:
-        # no rank returns before the writing rank's shards are there
+        chunks_run += 1
+        if sweep.checkpoint_dir and writes and (
+                chunks_run % sweep.checkpoint_every == 0 or exec_done.all()):
+            # chunks run in plan order, so the coverage is a prefix, whose
+            # length is the step
+            done = n_runs if exec_done.all() else int(np.argmin(exec_done))
+            store.save_checkpoint(sweep.checkpoint_dir, done, bufs,
+                                  {"done": done, "fingerprint": fingerprint})
+            store.cleanup(sweep.checkpoint_dir, keep=3)
+    if group is not None and (sweep.results_dir or sweep.checkpoint_dir):
+        # no rank returns before the writing rank's commits are there
         dist.all_reduce(torch.zeros(1, device=dev))
     dt = time.perf_counter() - t0
 
+    done_mask = np.zeros(n_runs, bool)
+    done_mask[perm[exec_done]] = True
     records = [CircuitRecord(
-        genome_nodes=nodes[i], genome_outs=outs[i], metrics=metrics[i],
-        power_rel=float(power_rel[i]), constraint=grid[i][0].describe(),
-        seed=grid[i][1], feasible=bool(feas[i]),
-        error_mean=float(moments[i, 0]), error_std=float(moments[i, 1]))
-        for i in np.flatnonzero(done)]
+        genome_nodes=bufs["parent_nodes"][i],
+        genome_outs=bufs["parent_outs"][i], metrics=bufs["metrics"][i],
+        power_rel=float(bufs["power_rel"][i]),
+        constraint=grid[i][0].describe(), seed=grid[i][1],
+        feasible=bool(bufs["feasible"][i]),
+        error_mean=float(bufs["error_mean"][i]),
+        error_std=float(bufs["error_std"][i]),
+        metrics_stderr=bufs["metrics_stderr"][i],
+        certified=bool(bufs["certified_mask"][i]))
+        for i in np.flatnonzero(done_mask)]
     return SweepResult(
-        records=records, thresholds=thr, metrics=metrics,
-        power_rel=power_rel, feasible=feas, best_fit=best_fit,
-        hist_power_rel=hist_p if full else None,
-        hist_fit=hist_f if full else None,
-        hist_metrics=hist_m if full else None,
-        done_mask=done, completed=int(done.sum()), n_runs=n_runs,
+        records=records, thresholds=thr, metrics=bufs["metrics"],
+        metrics_stderr=bufs["metrics_stderr"],
+        power_rel=bufs["power_rel"], feasible=bufs["feasible"].astype(bool),
+        best_fit=bufs["best_fit"],
+        hist_power_rel=bufs.get("hist_power_rel"),
+        hist_fit=bufs.get("hist_fit"),
+        hist_metrics=bufs.get("hist_metrics"),
+        done_mask=done_mask, completed=int(exec_done.sum()), n_runs=n_runs,
         runs_per_sec=(ran / dt) if ran else 0.0,
-        results_dir=sweep.results_dir)
+        results_dir=sweep.results_dir,
+        certified_mask=bufs["certified_mask"].astype(bool))

@@ -2,13 +2,17 @@
 experiment as a CLI.
 
   PYTHONPATH=src python -m repro_torch.launch.evolve --width 8 \
-      --constraint "mae=0.5,er=60" --generations 2000 --seeds 3
+      --constraint "mae=0.5,er=60" --generations 2000 --seeds 3 \
+      --out experiments/lib/mae05_er60.json
 
 Runs on the card; ``--device cpu`` runs the plain PyTorch path instead.
 Prints the same ``[evolve] … runs/s`` line and JSON rows as
-``repro.launch.evolve``.  ``--results-dir`` streams one result shard per
-chunk, and ``--export-artifacts DIR`` then exports the elites as a LUT
-registry that ``repro_torch.launch.serve --approx-lut DIR`` serves:
+``repro.launch.evolve``, and ``--out`` writes the same circuit library.
+``--results-dir`` streams one result shard per chunk and
+``--checkpoint-dir`` checkpoints the sweep: rerun the same command to
+resume an interrupted sweep (a finished one reports ``@ 0.00 runs/s``).
+``--export-artifacts DIR`` then exports the elites as a LUT registry that
+``repro_torch.launch.serve --approx-lut DIR`` serves:
 
   PYTHONPATH=src python -m repro_torch.launch.evolve --width 8 \
       --constraint "mae=0.5,er=60" --generations 2000 --seeds 16 \
@@ -21,6 +25,7 @@ import json
 
 from repro_torch.core.evolve import EvolveConfig
 from repro_torch.core.fitness import ConstraintSpec
+from repro_torch.core.library import save_library
 from repro_torch.core.metrics import METRIC_NAMES
 from repro_torch.core.search import SearchConfig, run_sweep_serial
 from repro_torch.core.sweep import SweepConfig, run_sweep_batched
@@ -53,14 +58,24 @@ def main(argv=None):
     ap.add_argument("--chunk-size", type=int, default=32,
                     help="runs evaluated together (one kernel launch per "
                          "generation for chunk x lambda genomes)")
-    ap.add_argument("--history", default="full",
+    ap.add_argument("--history", default=None,
                     choices=["full", "summary", "none"],
                     help="per-generation parent histories: in RAM and in "
-                         "the shards ('full'), in the --results-dir shards "
-                         "only ('summary'), or nowhere ('none')")
+                         "the shards ('full', the default), in the "
+                         "--results-dir shards only ('summary'), or nowhere "
+                         "('none')")
+    ap.add_argument("--no-history", action="store_true",
+                    help="alias for --history none")
     ap.add_argument("--results-dir", default=None,
                     help="stream each finished chunk to an on-disk result "
-                         "shard (core.results; readable by either package)")
+                         "shard (core.results; readable by either package); "
+                         "the shard set is resumable: rerun to continue")
+    ap.add_argument("--checkpoint-dir", default=None,
+                    help="resumable sweep state; rerun with the same grid "
+                         "to continue mid-grid")
+    ap.add_argument("--out", default=None,
+                    help="write the records as a JSON circuit library "
+                         "(core.library)")
     ap.add_argument("--export-artifacts", default=None, metavar="DIR",
                     help="after the sweep, export per-constraint elite "
                          "circuits from --results-dir as fingerprinted LUT "
@@ -99,7 +114,9 @@ def main(argv=None):
         result = run_sweep_batched(
             cfg, constraints, seeds=range(args.seeds),
             sweep=SweepConfig(chunk_size=args.chunk_size,
-                              keep_history=args.history,
+                              checkpoint_dir=args.checkpoint_dir,
+                              keep_history=args.history or (
+                                  "none" if args.no_history else "full"),
                               results_dir=args.results_dir,
                               layout=args.layout),
             device=args.device)
@@ -118,6 +135,9 @@ def main(argv=None):
                "power_rel": round(r.power_rel, 4),
                "feasible": r.feasible, "metrics": met}
         print(json.dumps(row), flush=True)
+    if args.out:
+        save_library(records, args.out)
+        print(f"[evolve] wrote {len(records)} circuits -> {args.out}")
     if args.export_artifacts:
         from repro_torch.core.artifacts import export_elites
         registry = export_elites(args.results_dir, args.export_artifacts)

@@ -11,9 +11,13 @@ import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "src", "repro_torch")
+EXAMPLES = sorted(os.path.join(REPO, "examples", f)
+                  for f in os.listdir(os.path.join(REPO, "examples"))
+                  if f.endswith("_torch.py"))
 PORT_FILES = sorted(
     [os.path.join(d, f) for d, _, fs in os.walk(PORT) for f in fs
-     if f.endswith(".py")] + [os.path.join(REPO, "chip_smoke.py")])
+     if f.endswith(".py")] + [os.path.join(REPO, "chip_smoke.py")]
+    + EXAMPLES)
 CUDA_FILES = sorted(os.path.join(d, f) for d, _, fs in os.walk(PORT)
                     for f in fs if f.endswith((".cu", ".cuh")))
 
@@ -39,8 +43,11 @@ def test_port_files_found():
                 "configs/llama3_2_1b.py", "launch/serve.py",
                 "launch/export.py", "kernels/tune.py",
                 "kernels/flash_attention.py", "kernels/ref.py",
-                "parallel/ctx.py", "parallel/spawn.py", "launch/mesh.py"):
+                "parallel/ctx.py", "parallel/spawn.py", "launch/mesh.py",
+                "core/pareto.py"):
         assert mod in names
+    assert [os.path.basename(p) for p in EXAMPLES] == [
+        "pareto_sweep_torch.py", "quickstart_torch.py"]
     sources = {os.path.relpath(p, PORT) for p in CUDA_FILES}
     assert sources == {"kernels/csrc/cgp_sim.cu", "kernels/csrc/lut_matmul.cu",
                        "kernels/csrc/flash_attention.cu"}

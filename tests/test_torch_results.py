@@ -157,21 +157,6 @@ def test_writing_into_another_grids_directory_raises(shard_dirs, tmp_path):
                           device="cpu")
 
 
-def test_rerun_into_own_directory_refuses_to_resume(shard_dirs, tmp_path):
-    import shutil
-    d = str(tmp_path / "again")
-    shutil.copytree(shard_dirs[1], d)
-    before = {n: os.path.getmtime(os.path.join(d, n)) for n in os.listdir(d)}
-    _, tcfg = _configs()
-    with pytest.raises(NotImplementedError, match="resume not ported yet"):
-        run_sweep_batched(tcfg, [ConstraintSpec(**c) for c in CONSTRAINTS],
-                          SEEDS, SweepConfig(chunk_size=2,
-                                             keep_history="summary",
-                                             results_dir=d), device="cpu")
-    assert before == {n: os.path.getmtime(os.path.join(d, n))
-                      for n in os.listdir(d)}
-
-
 def test_history_none_shards_and_full_in_ram(tmp_path):
     _, tcfg = _configs(gens=10)
     cons = [ConstraintSpec(**c) for c in CONSTRAINTS]
