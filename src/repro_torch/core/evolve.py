@@ -36,6 +36,7 @@ from repro_torch.core.fitness import fitness as fitness_fn
 from repro_torch.core.genome import CGPSpec, Genome
 from repro_torch.core.mutate import mutate_population
 from repro_torch.core.power import CircuitCost, circuit_cost_from_probs
+from repro_torch.core.sampling import INPUT_DISTS
 from repro_torch.kernels import ops as kops
 
 
@@ -53,6 +54,38 @@ class EvolveConfig:
     # tuning table, kernels.tune).  An execution knob: the runs are the same
     # under every layout, so the grid fingerprint leaves it out.
     layout: str = "auto"
+    # Evaluation inputs: "exhaustive" scores candidates on the full 2^(2w)
+    # input cube; "sampled" on a deterministic ``sample_size``-row operand
+    # sample drawn from ``input_dist`` by the counter-based stream seeded by
+    # ``sample_seed`` (``core.sampling``).  Unlike ``layout`` this changes
+    # results, so it enters the grid fingerprint.  The engine consumes
+    # whatever (in_planes, golden_vals) ``search.problem_arrays`` builds.
+    eval_mode: str = "exhaustive"    # "exhaustive" | "sampled"
+    sample_size: int = 1 << 14       # rows (rounded up to pow2 words * 32)
+    input_dist: str = "uniform"      # "uniform" | "gaussian" | "empirical"
+    sample_seed: int = 0             # sample-stream seed (not the CGP seed)
+    # The exact tier (``core.certify``): after each sampled sweep chunk, up
+    # to a ramped ``certify_budget`` of elites feasible ON THE SAMPLE are
+    # re-measured exactly over the whole cube.  Changes the escalated rows,
+    # so it enters a sampled grid's fingerprint (only when on).  A no-op
+    # under exhaustive evaluation (the census is exact) and on the serial
+    # ``evolve`` path.
+    certify: bool = False
+    certify_budget: int = 8          # base escalations per sweep chunk
+
+    def __post_init__(self):
+        if self.eval_mode not in ("exhaustive", "sampled"):
+            raise ValueError(f"eval_mode must be 'exhaustive' or 'sampled', "
+                             f"got {self.eval_mode!r}")
+        if self.input_dist not in INPUT_DISTS:
+            raise ValueError(f"input_dist must be one of {INPUT_DISTS}, "
+                             f"got {self.input_dist!r}")
+        if self.sample_size < 1:
+            raise ValueError(
+                f"sample_size must be >= 1, got {self.sample_size}")
+        if self.certify_budget < 1:
+            raise ValueError(
+                f"certify_budget must be >= 1, got {self.certify_budget}")
 
 
 class EvalResult(NamedTuple):

@@ -212,6 +212,48 @@ def finalize_metrics(p: MetricPartials, n_o: int, gauss_sigma: float,
     ], dim=-1)
 
 
+def metric_stderr(p: MetricPartials, n_o: int) -> torch.Tensor:
+    """(..., N_METRICS) float32 standard errors in ``finalize_metrics``'s
+    units, from the sample second moments in the partials (CLT):
+
+      * MAE / |AVG|: sqrt(Var[|d|] / n), sqrt(Var[d] / n), both from Σd²,
+        scaled by 100/2^n_o like the point estimates;
+      * ER: Bernoulli sqrt(p̂(1-p̂)/n), in percent;
+      * MRE: sqrt(Var[rel] / n), in percent;
+      * WCE / ACC0 / GAUSS: 0 — extreme-value and indicator metrics have no
+        CLT interval; on a sample they are observed values (lower bounds),
+        which only the exact tier (``core.certify``) can certify.
+
+    Under exhaustive evaluation the census has no sampling error: callers
+    report zeros there and compute this for sampled evaluation only.  The
+    arithmetic is the reference's, in float32; ``sq_sum``/``rel_sq`` are
+    sums in another order than the reference's, so the results agree to
+    rtol 1e-5.
+    """
+    out_range = float(1 << n_o)
+    n = torch.clamp(p.count.to(torch.float32), min=1.0)
+    mean_abs = p.abs_sum.to(torch.float32) / n
+    mean_sgn = p.sgn_sum.to(torch.float32) / n
+    mean_sq = p.sq_sum / n
+    var_abs = torch.clamp(mean_sq - mean_abs ** 2, min=0.0)
+    var_sgn = torch.clamp(mean_sq - mean_sgn ** 2, min=0.0)
+    er_hat = p.err_count.to(torch.float32) / n
+    var_er = torch.clamp(er_hat * (1.0 - er_hat), min=0.0)
+    mre_hat = p.rel_sum / n
+    var_rel = torch.clamp(p.rel_sq / n - mre_hat ** 2, min=0.0)
+    rt_n = torch.sqrt(n)
+    zero = torch.zeros_like(n)
+    return torch.stack([
+        100.0 * torch.sqrt(var_abs) / rt_n / out_range,
+        zero,
+        100.0 * torch.sqrt(var_er) / rt_n,
+        100.0 * torch.sqrt(var_rel) / rt_n,
+        100.0 * torch.sqrt(var_sgn) / rt_n / out_range,
+        zero,
+        zero,
+    ], dim=-1)
+
+
 def error_moments(golden: torch.Tensor, cand: torch.Tensor
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """(mean, std) of the signed error over the last dim (population std),
@@ -224,9 +266,10 @@ def error_moments(golden: torch.Tensor, cand: torch.Tensor
 # ------------------------- NumPy oracle (tests) -------------------------
 
 def metrics_np(golden: np.ndarray, cand: np.ndarray, n_o: int,
-               gauss_sigma: float = 256.0, gauss_slack: float = 1.0
-               ) -> np.ndarray:
-    """float64 NumPy oracle of ``finalize_metrics(error_partials(...))``."""
+               gauss_sigma: float = 256.0, n_gauss_side: int = N_GAUSS_SIDE,
+               gauss_slack: float = 1.0) -> np.ndarray:
+    """float64 NumPy oracle of ``finalize_metrics(error_partials(...))``;
+    also the exact tier's finalization (``core.certify``)."""
     g = golden.astype(np.int64)
     c = cand.astype(np.int64)
     diff = g - c
@@ -239,10 +282,10 @@ def metrics_np(golden: np.ndarray, cand: np.ndarray, n_o: int,
     mre = (ad / np.maximum(g, 1)).mean()
     avg = diff.mean()
     acc0 = float(((g == 0) & (c != 0)).sum() == 0)
-    edges = gauss_bin_edges(gauss_sigma)
+    edges = gauss_bin_edges(gauss_sigma, n_gauss_side)
     idx = np.searchsorted(edges, diff.astype(np.float64), side="right")
     hist = np.bincount(idx[diff != 0], minlength=len(edges) + 1)
-    mass = gauss_bin_mass(gauss_sigma)
+    mass = gauss_bin_mass(gauss_sigma, n_gauss_side)
     gauss_ok = float(np.all(hist <= mass * n * gauss_slack))
     return np.array([100 * mae / out_range, 100 * wce / out_range, 100 * er,
                      100 * mre, 100 * abs(avg) / out_range, acc0, gauss_ok],

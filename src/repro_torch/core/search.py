@@ -16,7 +16,7 @@ import torch
 from repro_torch import random as R
 from repro_torch.core import golden as G
 from repro_torch.core import metrics as M
-from repro_torch.core import simulate
+from repro_torch.core import sampling, simulate
 from repro_torch.core.evolve import EvolveConfig, EvolveResult, evolve
 from repro_torch.core.fitness import ConstraintSpec
 from repro_torch.core.genome import CGPSpec, Genome
@@ -44,22 +44,44 @@ class CircuitRecord:
     feasible: bool
     error_mean: float = 0.0      # signed error mean (Fig. 13 analyses)
     error_std: float = 0.0
-    # (N_METRICS,) standard errors: zeros, a census has no sampling error
+    # (N_METRICS,) standard errors of the final metrics: all zero under
+    # exhaustive evaluation (a census has no sampling error), CLT estimates
+    # from the sample's second moments when sampled
     metrics_stderr: np.ndarray = dataclasses.field(
         default_factory=lambda: np.zeros(M.N_METRICS, np.float32))
-    certified: bool = True       # metrics exact over the whole input cube
+    # True when ``metrics`` is exact over the whole input cube: always under
+    # exhaustive evaluation; for sampled runs only after the exact tier
+    # (``core.certify``) re-measured the circuit
+    certified: bool = False
 
 
 def problem_arrays(cfg: SearchConfig, device: torch.device | str | None = None):
     """(golden genome, spec, in_planes, golden values, golden power) on
-    ``device``, over the exhaustive 2^(2w) input cube."""
+    ``device``.
+
+    ``cfg.evolve.eval_mode`` picks the inputs: the exhaustive 2^(2w) cube,
+    or a deterministic ``core.sampling`` operand sample packed into the
+    same bit-plane / golden-value contract.  The golden power is measured
+    on the same inputs as the candidates (under sampling, a sample
+    estimate, consistent across both sides of ``power_rel``).
+    """
     dev = resolve_device(device)
     build = G.array_multiplier if cfg.kind == "mul" else G.ripple_carry_adder
     gold, spec = build(cfg.width, n_n=cfg.n_n)
     gold = Genome(gold.nodes.to(dev), gold.outs.to(dev))
-    # copies: the planes array is cached and shared
-    in_planes = torch.tensor(simulate.input_planes_np(spec.n_i), device=dev)
-    gvals = torch.tensor(G.golden_values(cfg.width, cfg.kind), device=dev)
+    ecfg = cfg.evolve
+    if ecfg.eval_mode == "sampled":
+        planes_np, gvals_np = sampling.sample_problem(
+            cfg.width, cfg.kind, ecfg.sample_size, ecfg.input_dist,
+            ecfg.sample_seed)
+        in_planes = torch.as_tensor(planes_np, device=dev)
+        gvals = torch.as_tensor(gvals_np, device=dev)
+    else:
+        # copies: the planes array is cached and shared
+        in_planes = torch.tensor(simulate.input_planes_np(spec.n_i),
+                                 device=dev)
+        gvals = torch.tensor(G.golden_values(cfg.width, cfg.kind),
+                             device=dev)
     wires = simulate.simulate_planes(gold, spec, in_planes)
     probs = simulate.signal_probabilities(wires[spec.n_i:])
     gpower = circuit_cost_from_probs(gold, spec, probs, with_delay=False).power
@@ -77,19 +99,23 @@ def run_search(cfg: SearchConfig, constraint: ConstraintSpec, seed: int = 0,
     res = evolve(spec, ecfg, gold, thr, in_planes, gvals, gpower,
                  R.PRNGKey(seed, device=dev))
     rec = characterize(res.parent, spec, constraint, seed, in_planes, gvals,
-                       gpower)
+                       gpower, sampled=cfg.evolve.eval_mode == "sampled")
     return rec, res
 
 
 def characterize(genome: Genome, spec: CGPSpec, constraint: ConstraintSpec,
-                 seed: int, in_planes, gvals, gpower) -> CircuitRecord:
-    """Full final measurement of one evolved circuit."""
+                 seed: int, in_planes, gvals, gpower, *,
+                 sampled: bool = False) -> CircuitRecord:
+    """Full final measurement of one evolved circuit; ``sampled`` adds the
+    standard errors.  The serial path has no escalation driver, so the
+    record is certified exactly when the evaluation was exhaustive."""
     from repro_torch.core.sweep import characterize_chunk
     thr = torch.as_tensor(constraint.thresholds(), device=in_planes.device)
-    met, prel, feas, emean, estd = (
+    met, sterr, prel, feas, emean, estd = (
         x[0].cpu().numpy() for x in characterize_chunk(
             spec, constraint.gauss_sigma, genome.nodes[None],
-            genome.outs[None], thr[None], in_planes, gvals, gpower))
+            genome.outs[None], thr[None], in_planes, gvals, gpower,
+            sampled=sampled))
     return CircuitRecord(
         genome_nodes=genome.nodes.cpu().numpy(),
         genome_outs=genome.outs.cpu().numpy(),
@@ -100,6 +126,8 @@ def characterize(genome: Genome, spec: CGPSpec, constraint: ConstraintSpec,
         feasible=bool(feas),
         error_mean=float(emean),
         error_std=float(estd),
+        metrics_stderr=sterr,
+        certified=not sampled,
     )
 
 

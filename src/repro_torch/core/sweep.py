@@ -16,8 +16,17 @@ same shape; results are scattered back to grid order.
 With ``SweepConfig.results_dir`` every finished chunk is committed as one
 result shard (``core.results``, the reference's schema v3), under a
 manifest keyed by ``grid_fingerprint`` — the same hex digest the JAX
-package computes for the same exhaustive grid, so either package's reader
-opens the other's directory.
+package computes for the same grid, so either package's reader opens the
+other's directory.
+
+Under ``EvolveConfig.eval_mode="sampled"`` every evaluation runs on a
+deterministic operand sample (``core.sampling``) and the records carry
+standard errors.  With ``EvolveConfig.certify`` each chunk then escalates
+its best sample-feasible rows, up to ``certify.CertifyPolicy``'s budget for
+the chunk's place in the plan, to an exact measurement over the whole cube
+(``core.certify``): their metrics become exact, their stderr 0, their
+feasibility the exact verdict, and ``certified_mask`` marks them.  An
+exhaustive census is certified as it stands.
 
 Progress is resumable.  The committed shards are the resume state of a
 ``results_dir`` sweep: a rerun of the same grid restores them (a damaged
@@ -50,8 +59,9 @@ import torch.distributed as dist
 
 from repro_torch import random as R
 from repro_torch.checkpoint import store
+from repro_torch.core import certify
 from repro_torch.core import metrics as M
-from repro_torch.core import pareto, simulate
+from repro_torch.core import pareto, sampling, simulate
 from repro_torch.core.evolve import (EvolveConfig, init_state_batched,
                                      make_batched_generation_step,
                                      scan_generations)
@@ -100,7 +110,8 @@ class SweepConfig:
     ACC0 constraints is the unsharded sweep's (integer-exact partials); the
     MRE sums are reassociated, so MRE-constrained runs may split at a
     last-bit tie.  Like ``layout``, ``checkpoint_dir`` and
-    ``checkpoint_every``, it stays out of the grid fingerprint.
+    ``checkpoint_every``, it stays out of the grid fingerprint.  Under
+    sampled evaluation it shards the sample's words (a power of two).
     """
     chunk_size: int = 32          # runs per chunk (device-memory bound)
     checkpoint_dir: str | None = None
@@ -138,7 +149,7 @@ class SweepResult:
     records: list                      # list[CircuitRecord]
     thresholds: np.ndarray             # (n_runs, N_METRICS)
     metrics: np.ndarray                # (n_runs, N_METRICS) final measurement
-    metrics_stderr: np.ndarray         # (n_runs, N_METRICS) zeros: a census
+    metrics_stderr: np.ndarray         # (n_runs, N_METRICS); 0 if exact
     power_rel: np.ndarray              # (n_runs,)
     feasible: np.ndarray               # (n_runs,) bool
     best_fit: np.ndarray               # (n_runs,)
@@ -151,6 +162,9 @@ class SweepResult:
     runs_per_sec: float                # this call's runs; 0.0 if none ran
     results_dir: str | None = None     # where the shards went, if streaming
     certified_mask: np.ndarray | None = None  # (n_runs,) bool: metrics exact
+    # sampled sweeps with certification: {"escalated": this call's
+    # escalations, "certified_rows": rows certified, "budget": per chunk}
+    certify_stats: dict | None = None
 
     def reader(self):
         """The ``SweepResultReader`` of this sweep's ``results_dir``."""
@@ -197,21 +211,25 @@ def evolve_chunk(spec: CGPSpec, cfg: EvolveConfig, golden: Genome,
 def characterize_chunk(spec: CGPSpec, gauss_sigma: float, nodes: torch.Tensor,
                        outs: torch.Tensor, thr_mat: torch.Tensor,
                        in_planes: torch.Tensor, golden_vals: torch.Tensor,
-                       golden_power: torch.Tensor):
+                       golden_power: torch.Tensor, sampled: bool = False):
     """Final measurement of C circuits (plain tensor code on the device):
-    (metrics (C, N_METRICS), power_rel (C,), feasible (C,), error mean (C,),
-    error std (C,))."""
+    (metrics (C, N_METRICS), stderr (C, N_METRICS), power_rel (C,),
+    feasible (C,), error mean (C,), error std (C,)).  ``sampled`` turns the
+    second-moment partials into standard errors; otherwise they are zeros
+    (a census has no sampling error)."""
     g = Genome(nodes, outs)
     wires = simulate.simulate_planes(g, spec, in_planes)
     cvals = simulate.unpack_values(simulate.output_planes(g, wires))
     partials = M.error_partials(golden_vals, cvals, gauss_sigma,
                                 n_bits=spec.n_o)
     met = M.finalize_metrics(partials, spec.n_o, gauss_sigma)
+    sterr = (M.metric_stderr(partials, spec.n_o) if sampled
+             else torch.zeros_like(met))
     probs = simulate.signal_probabilities(wires[:, spec.n_i:])
     cost = circuit_cost_from_probs(g, spec, probs, with_delay=False)
     emean, estd = M.error_moments(golden_vals, cvals)
-    return (met, cost.power / golden_power, feasible(met, thr_mat), emean,
-            estd)
+    return (met, sterr, cost.power / golden_power, feasible(met, thr_mat),
+            emean, estd)
 
 
 def sweep_grid(constraints: Sequence[ConstraintSpec],
@@ -237,9 +255,12 @@ def plan_chunks(sigmas: np.ndarray, chunk_size: int) -> list[tuple[int, int]]:
 def grid_fingerprint(cfg, grid, keep_history: str) -> str:
     """Identity of (problem, grid, history mode) pinned by the results
     manifest: the hex digest ``repro.core.sweep.grid_fingerprint`` gives
-    for the same exhaustive grid run with ``backend="jnp"`` and no
-    chunk-level migration (the reference hashes "full"/"none" as the bools
-    they once were)."""
+    for the same grid run with ``backend="jnp"`` and no chunk-level
+    migration (the reference hashes "full"/"none" as the bools they once
+    were).  Sampled grids add the evaluation mode and the sample stream's
+    identity, and, only when certification is on, its budget; exhaustive
+    grids add nothing, so their fingerprints do not depend on those
+    knobs."""
     ecfg = cfg.evolve
     ident = {
         "width": cfg.width, "kind": cfg.kind, "n_n": cfg.n_n,
@@ -254,6 +275,12 @@ def grid_fingerprint(cfg, grid, keep_history: str) -> str:
             np.stack([con.thresholds() for con, _ in grid]).tobytes()
         ).hexdigest(),
     }
+    if ecfg.eval_mode != "exhaustive":
+        ident["eval_mode"] = ecfg.eval_mode
+        ident["sample_stream"] = sampling.stream_fingerprint(
+            cfg.width, ecfg.sample_size, ecfg.input_dist, ecfg.sample_seed)
+        if ecfg.certify:
+            ident["certify"] = {"budget": int(ecfg.certify_budget)}
     return hashlib.sha256(json.dumps(ident, sort_keys=True,
                                      default=float).encode()).hexdigest()
 
@@ -371,6 +398,19 @@ def run_sweep_batched(cfg, constraints: Sequence[ConstraintSpec],
     perm = np.argsort(sigmas, kind="stable")
     chunks = plan_chunks(sigmas[perm], sweep.chunk_size)
 
+    sampled = cfg.evolve.eval_mode == "sampled"
+    # the exact tier runs for sampled grids only: an exhaustive census is
+    # already exact, so its rows are certified without escalation
+    certify_on = sampled and cfg.evolve.certify
+    # the exact pass's slice is the module's DISPATCH_ROWS at call time
+    policy = (certify.CertifyPolicy(
+        budget=cfg.evolve.certify_budget,
+        dispatch_rows=certify.DISPATCH_ROWS) if certify_on else None)
+    # a span's budget follows its place in the FULL plan, so resumed sweeps
+    # budget identically
+    plan_pos = {span: i for i, span in enumerate(chunks)}
+    n_escalated = 0
+
     bufs = _alloc_buffers(spec, n_runs, gens, mode)
     fingerprint = grid_fingerprint(cfg, grid, mode)
     exec_done = np.zeros(n_runs, bool)  # execution-order positions covered
@@ -425,21 +465,43 @@ def run_sweep_batched(cfg, constraints: Sequence[ConstraintSpec],
                                          planes_local, gvals_local, gpower,
                                          keys[torch.from_numpy(sel)].to(dev),
                                          group)
-        met, prel, ok, emean, estd = characterize_chunk(
+        met, sterr, prel, ok, emean, estd = characterize_chunk(
             spec, sigma, state.parent.nodes, state.parent.outs, thr_c,
-            in_planes, gvals, gpower)
+            in_planes, gvals, gpower, sampled=sampled)
         host = lambda x: x.cpu().numpy()[:n]
+        nodes_np, outs_np = host(state.parent.nodes), host(state.parent.outs)
+        met_np, sterr_np = host(met).copy(), host(sterr).copy()
+        feas_np = host(ok).astype(np.uint8)
+        prel_np = host(prel)
+        # a census is its own certificate; sampled rows are certified only
+        # by the exact tier
+        cert = np.full(n, 0 if sampled else 1, np.uint8)
+        if certify_on:
+            # the best sampled-feasible elites, re-measured over the cube
+            rows = certify.select_escalations(
+                feas_np, prel_np, cert,
+                policy.chunk_budget(plan_pos[(start, end)], len(chunks)))
+            if rows.size:
+                exact = certify.certified_metrics_batched(
+                    nodes_np[rows], outs_np[rows], spec, cfg.kind, cfg.width,
+                    sigma, dispatch_rows=policy.dispatch_rows, device=dev)
+                for r, cmet in zip(rows, exact):
+                    met_np[r] = cmet
+                    sterr_np[r] = 0.0      # no sampling error left
+                    feas_np[r] = certify.feasible_np(cmet, thr[orig[r]])
+                    cert[r] = 1
+                n_escalated += rows.size
         chunk_rows = {
-            "parent_nodes": host(state.parent.nodes),
-            "parent_outs": host(state.parent.outs),
+            "parent_nodes": nodes_np,
+            "parent_outs": outs_np,
             "best_nodes": host(state.best.nodes),
             "best_outs": host(state.best.outs),
             "best_fit": host(state.best_fit),
-            "metrics": host(met),
-            "metrics_stderr": np.zeros((n, M.N_METRICS), np.float32),
-            "power_rel": host(prel),
-            "feasible": host(ok).astype(np.uint8),
-            "certified_mask": np.ones(n, np.uint8),  # a census is exact
+            "metrics": met_np,
+            "metrics_stderr": sterr_np,
+            "power_rel": prel_np,
+            "feasible": feas_np,
+            "certified_mask": cert,
             "error_mean": host(emean),
             "error_std": host(estd),
         }
@@ -496,4 +558,9 @@ def run_sweep_batched(cfg, constraints: Sequence[ConstraintSpec],
         done_mask=done_mask, completed=int(exec_done.sum()), n_runs=n_runs,
         runs_per_sec=(ran / dt) if ran else 0.0,
         results_dir=sweep.results_dir,
-        certified_mask=bufs["certified_mask"].astype(bool))
+        certified_mask=bufs["certified_mask"].astype(bool),
+        certify_stats=({
+            "escalated": n_escalated,
+            "certified_rows": int(bufs["certified_mask"].sum()),
+            "budget": int(cfg.evolve.certify_budget),
+        } if certify_on else None))

@@ -357,6 +357,9 @@ def _check(nodes, outs, in_planes, golden_vals, n_i, n_n, n_o):
         raise ValueError(f"R={R} genomes outside the launchable 1..65535")
     if not 1 <= n_o <= 30:
         raise ValueError(f"n_o={n_o} outside 1..30")
+    # the kernel's instantiations load at most 32 input planes a tile
+    if not 1 <= n_i <= 32:
+        raise ValueError(f"n_i={n_i} outside 1..32")
     if golden_vals.data_ptr() % 16:
         raise ValueError("golden_vals must be 16-byte aligned (int4 reads)")
 

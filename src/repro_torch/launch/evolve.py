@@ -17,6 +17,17 @@ resume an interrupted sweep (a finished one reports ``@ 0.00 runs/s``).
   PYTHONPATH=src python -m repro_torch.launch.evolve --width 8 \
       --constraint "mae=0.5,er=60" --generations 2000 --seeds 16 \
       --results-dir R --history summary --export-artifacts REG
+
+Past width ~10 the exhaustive cube is out of reach: ``--eval-mode sampled``
+scores candidates on a deterministic operand sample (``--sample-size``,
+``--input-dist``, ``--sample-seed``) and prints each record's standard
+errors; ``--certify`` re-measures the best sampled-feasible elites of each
+chunk exactly over the whole cube and prints which rows are certified:
+
+  PYTHONPATH=src python -m repro_torch.launch.evolve --width 12 \
+      --nodes 768 --constraint "mae=0.5,er=60" --constraint "wce=2.0" \
+      --seeds 16 --lam 8 --eval-mode sampled --sample-size 16384 \
+      --certify --certify-budget 8 --results-dir R
 """
 from __future__ import annotations
 
@@ -90,6 +101,37 @@ def main(argv=None):
                          "resolves the measured tuning table "
                          "(kernels/tune.py).  The runs are the same either "
                          "way")
+    ap.add_argument("--eval-mode", default="exhaustive",
+                    choices=["exhaustive", "sampled"],
+                    help="evaluation inputs: 'exhaustive' scores every "
+                         "candidate on the full 2^(2w) cube; 'sampled' on a "
+                         "deterministic --sample-size operand sample from "
+                         "--input-dist, with per-metric standard errors "
+                         "reported (the only tractable mode past width "
+                         "~10-12)")
+    ap.add_argument("--sample-size", type=int, default=1 << 14,
+                    help="rows per sample (eval-mode=sampled); rounded up "
+                         "to a power-of-two word count x 32 lanes "
+                         "(default: 16384)")
+    ap.add_argument("--input-dist", default="uniform",
+                    choices=["uniform", "gaussian", "empirical"],
+                    help="operand distribution of the sample: uniform over "
+                         "[0, 2^w); gaussian centered mid-range (sigma = "
+                         "2^w/6, clipped); or empirical, inverse-CDF draws "
+                         "from a histogram of the synthetic data stream")
+    ap.add_argument("--sample-seed", type=int, default=0,
+                    help="seed of the counter-based sample stream (part of "
+                         "the grid fingerprint)")
+    ap.add_argument("--certify", action="store_true",
+                    help="exact tier: after each sampled sweep chunk, the "
+                         "best elites that satisfy the combined constraint "
+                         "on the sample are re-measured exactly over the "
+                         "full 2^(2w) cube, so their WCE/ACC0/GAUSS verdicts "
+                         "are guarantees, not estimates.  No-op under "
+                         "--eval-mode exhaustive (a census is exact)")
+    ap.add_argument("--certify-budget", type=int, default=8,
+                    help="base escalations per sweep chunk; the cap ramps "
+                         "to twice that by the last chunk (default: 8)")
     ap.add_argument("--serial", action="store_true",
                     help="reference serial loop instead of the batched engine")
     ap.add_argument("--device", default="cuda",
@@ -99,13 +141,22 @@ def main(argv=None):
     if args.export_artifacts and (args.serial or not args.results_dir):
         ap.error("--export-artifacts reads the sweep back from its result "
                  "shards: it needs --results-dir and the batched engine")
+    if args.serial and args.certify:
+        ap.error("--certify's escalation driver lives in the batched sweep "
+                 "engine; drop --serial")
     if args.export_artifacts and args.kind != "mul":
         ap.error("--export-artifacts builds multiplier LUT artifacts; "
                  "--kind add is not exportable")
 
-    cfg = SearchConfig(width=args.width, kind=args.kind, n_n=args.nodes,
-                       evolve=EvolveConfig(generations=args.generations,
-                                           lam=args.lam, layout=args.layout))
+    cfg = SearchConfig(
+        width=args.width, kind=args.kind, n_n=args.nodes,
+        evolve=EvolveConfig(generations=args.generations, lam=args.lam,
+                            layout=args.layout, eval_mode=args.eval_mode,
+                            sample_size=args.sample_size,
+                            input_dist=args.input_dist,
+                            sample_seed=args.sample_seed,
+                            certify=args.certify,
+                            certify_budget=args.certify_budget))
     constraints = [parse_constraint(c) for c in args.constraint]
     if args.serial:
         records = run_sweep_serial(cfg, constraints, seeds=range(args.seeds),
@@ -123,6 +174,12 @@ def main(argv=None):
         records = result.records
         print(f"[evolve] {result.completed}/{result.n_runs} runs "
               f"@ {result.runs_per_sec:.2f} runs/s", flush=True)
+        if args.certify and result.certify_stats is not None:
+            st = result.certify_stats
+            print(f"[evolve] certify: {st['escalated']} escalations this "
+                  f"call, {st['certified_rows']}/{result.n_runs} rows "
+                  f"certified exact (budget {st['budget']}/chunk)",
+                  flush=True)
         if args.results_dir:
             reader = result.reader()
             print(f"[evolve] {len(reader.spans())} result shards "
@@ -134,6 +191,12 @@ def main(argv=None):
         row = {"constraint": r.constraint, "seed": r.seed,
                "power_rel": round(r.power_rel, 4),
                "feasible": r.feasible, "metrics": met}
+        if args.eval_mode == "sampled":
+            row["metrics_stderr"] = {
+                n: round(float(v), 6)
+                for n, v in zip(METRIC_NAMES, r.metrics_stderr)}
+            if args.certify:
+                row["certified"] = r.certified
         print(json.dumps(row), flush=True)
     if args.out:
         save_library(records, args.out)

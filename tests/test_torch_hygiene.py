@@ -44,7 +44,8 @@ def test_port_files_found():
                 "launch/export.py", "kernels/tune.py",
                 "kernels/flash_attention.py", "kernels/ref.py",
                 "parallel/ctx.py", "parallel/spawn.py", "launch/mesh.py",
-                "core/pareto.py"):
+                "core/pareto.py", "core/sampling.py", "core/certify.py",
+                "data/pipeline.py"):
         assert mod in names
     assert [os.path.basename(p) for p in EXAMPLES] == [
         "pareto_sweep_torch.py", "quickstart_torch.py"]

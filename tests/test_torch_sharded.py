@@ -335,21 +335,29 @@ SWEEP = dict(width=3, kind="mul", n_n=60, gens=30, lam=3, chunk=3,
              cons=[dict(mae=2.0), dict(er=50.0)], seeds=(0, 1))
 
 
-def _port_sweep_cfg():
+# the evaluation inputs of the sharded sweep: the cube, or a 128-row sample
+# (4 words, 2 a rank)
+EVAL_MODES = {"exhaustive": {},
+              "sampled": dict(eval_mode="sampled", sample_size=128,
+                              input_dist="gaussian")}
+
+
+def _port_sweep_cfg(mode="exhaustive"):
     from repro_torch.core.evolve import EvolveConfig
     from repro_torch.core.fitness import ConstraintSpec
     from repro_torch.core.search import SearchConfig
     cfg = SearchConfig(width=SWEEP["width"], kind=SWEEP["kind"],
                        n_n=SWEEP["n_n"], evolve=EvolveConfig(
-                           generations=SWEEP["gens"], lam=SWEEP["lam"]))
+                           generations=SWEEP["gens"], lam=SWEEP["lam"],
+                           **EVAL_MODES[mode]))
     return cfg, [ConstraintSpec(**c) for c in SWEEP["cons"]]
 
 
-def _sweep_rank(rank, world, results_dir):
+def _sweep_rank(rank, world, results_dir, mode):
     from repro_torch.core.sweep import SweepConfig, run_sweep_batched
     from repro_torch.launch.mesh import make_sweep_mesh
     from repro_torch.parallel import ctx
-    cfg, cons = _port_sweep_cfg()
+    cfg, cons = _port_sweep_cfg(mode)
     mesh = make_sweep_mesh(pods=1, device="cpu")
     with ctx.use_mesh(mesh):
         res = run_sweep_batched(cfg, cons, SWEEP["seeds"], SweepConfig(
@@ -364,7 +372,11 @@ def _shard_bytes(d):
             for f in sorted(os.listdir(d)) if f.startswith("shard_")}
 
 
-def test_model_axis_sweep_matches_jax_and_unsharded(tmp_path):
+@pytest.mark.parametrize("mode", list(EVAL_MODES))
+def test_model_axis_sweep_matches_jax_and_unsharded(mode, tmp_path):
+    """The sweep with its cube (or its sample's words) sharded over 2 gloo
+    ranks against the reference's ``model_axis`` sweep on 2 forced host
+    devices and the port's unsharded run."""
     from repro_torch.core.sweep import SweepConfig, run_sweep_batched
     out = tmp_path / "jax.npz"
     run_subprocess(f"""
@@ -379,7 +391,8 @@ from repro.parallel import ctx
 S = {SWEEP!r}
 cfg = SearchConfig(width=S['width'], kind=S['kind'], n_n=S['n_n'],
                    evolve=EvolveConfig(generations=S['gens'], lam=S['lam'],
-                                       backend='jnp'))
+                                       backend='jnp',
+                                       **{EVAL_MODES[mode]!r}))
 cons = [ConstraintSpec(**c) for c in S['cons']]
 with ctx.use_mesh(make_sweep_mesh(pods=1)):
     res = run_sweep_batched(cfg, cons, S['seeds'], SweepConfig(
@@ -388,14 +401,19 @@ np.savez({str(out)!r},
          nodes=np.stack([r.genome_nodes for r in res.records]),
          outs=np.stack([r.genome_outs for r in res.records]),
          metrics=np.stack([r.metrics for r in res.records]),
+         stderr=np.stack([r.metrics_stderr for r in res.records]),
          hist_fit=res.hist_fit)
 """, devices=2)
     ref = np.load(out)
-    cfg, cons = _port_sweep_cfg()
+    cfg, cons = _port_sweep_cfg(mode)
     plain = run_sweep_batched(cfg, cons, SWEEP["seeds"], SweepConfig(
         chunk_size=SWEEP["chunk"], results_dir=str(tmp_path / "plain")),
         device="cpu")
-    outs = _ranks(_sweep_rank, 2, tmp_path, str(tmp_path / "sharded"))
+    if mode == "sampled":
+        assert plain.metrics_stderr.any()
+        np.testing.assert_allclose(plain.metrics_stderr, ref["stderr"],
+                                   rtol=1e-5, atol=0)
+    outs = _ranks(_sweep_rank, 2, tmp_path, str(tmp_path / "sharded"), mode)
     n = len(SWEEP["cons"]) * len(SWEEP["seeds"])
     for records, hist_fit, fingerprint in outs:
         assert len(records) == plain.completed == n
