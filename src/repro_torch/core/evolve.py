@@ -54,6 +54,12 @@ class EvolveConfig:
     # tuning table, kernels.tune).  An execution knob: the runs are the same
     # under every layout, so the grid fingerprint leaves it out.
     layout: str = "auto"
+    # The phenotype-dedup evaluation cache (``core.evalcache``): the batched
+    # sweep evaluates each generation's unique, uncached active subgraphs
+    # only and hands every copy the cached result.  Like ``layout`` an
+    # execution knob (the runs are the same with it on or off), so the grid
+    # fingerprint leaves it out.  Read by ``core.sweep.run_sweep_batched``.
+    dedup: bool = False
     # Evaluation inputs: "exhaustive" scores candidates on the full 2^(2w)
     # input cube; "sampled" on a deterministic ``sample_size``-row operand
     # sample drawn from ``input_dist`` by the counter-based stream seeded by
@@ -154,31 +160,60 @@ def _select(state: EvolveState, offspring: Genome, fits: torch.Tensor,
         key=state.key)
 
 
+def mutate_segment(spec: CGPSpec, cfg: EvolveConfig, state: EvolveState
+                   ) -> tuple[torch.Tensor, Genome]:
+    """The generation's first part: each run's key split and its λ
+    offspring.  Returns (next keys (C, 2), offspring with leading (C, λ));
+    ``[:, 1]`` of the split draws the mutation, ``[:, 0]`` is kept."""
+    keys = R.split(state.key)                           # (C, 2, 2)
+    return keys[:, 0], mutate_population(keys[:, 1], state.parent, spec,
+                                         cfg.lam, cfg.mutation_rate)
+
+
+def eval_segment(spec: CGPSpec, cfg: EvolveConfig, nodes: torch.Tensor,
+                 outs: torch.Tensor, in_planes: torch.Tensor,
+                 golden_vals: torch.Tensor, group=None
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The generation's evaluation: (metric_vec (U, N_METRICS), power (U,))
+    of (U,)-stacked genomes in one kernel launch, the part of a result that
+    depends on the phenotype alone (what the dedup cache keeps)."""
+    res = eval_population(Genome(nodes, outs), spec, in_planes, golden_vals,
+                          cfg.gauss_sigma, cfg.layout, group)
+    return res.metric_vec, res.cost.power
+
+
+def select_segment(state: EvolveState, key: torch.Tensor, offspring: Genome,
+                   metric_vec: torch.Tensor, power: torch.Tensor,
+                   thr_mat: torch.Tensor) -> EvolveState:
+    """The generation's last part: Eq. (8)/(9) fitness of the (C, λ)
+    offspring under each run's thresholds and (1+λ) selection."""
+    fits = fitness_fn(power, metric_vec, thr_mat[:, None, :])
+    return _select(state._replace(key=key), offspring, fits, metric_vec,
+                   power)
+
+
 def make_batched_generation_step(spec: CGPSpec, cfg: EvolveConfig,
                                  group=None) -> Callable[..., EvolveState]:
     """One generation of C runs: step(state, thr_mat, in_planes,
-    golden_vals) -> state.
+    golden_vals) -> state, the three segments composed.
 
     Mutation and selection draw each run's PRNG stream exactly as the
     reference's per-run path does; the (C × λ) offspring are flattened and
     evaluated in one kernel launch.  ``group`` shards that evaluation's cube
     over its ranks; per-run state is replicated, so every rank mutates and
-    selects the same way.
+    selects the same way.  The dedup sweep runs the same segments with its
+    cache between them (``core.sweep``).
     """
     def step(state: EvolveState, thr_mat, in_planes, golden_vals):
-        C = thr_mat.shape[0]
-        keys = R.split(state.key)                       # (C, 2, 2)
-        offspring = mutate_population(keys[:, 1], state.parent, spec,
-                                      cfg.lam, cfg.mutation_rate)
-        flat = Genome(offspring.nodes.reshape(C * cfg.lam, spec.n_n, 3),
-                      offspring.outs.reshape(C * cfg.lam, spec.n_o))
-        res = eval_population(flat, spec, in_planes, golden_vals,
-                              cfg.gauss_sigma, cfg.layout, group)
-        mets = res.metric_vec.reshape(C, cfg.lam, M.N_METRICS)
-        powers = res.cost.power.reshape(C, cfg.lam)
-        fits = fitness_fn(powers, mets, thr_mat[:, None, :])
-        return _select(state._replace(key=keys[:, 0]), offspring, fits,
-                       mets, powers)
+        C, lam = thr_mat.shape[0], cfg.lam
+        key, offspring = mutate_segment(spec, cfg, state)
+        mets, powers = eval_segment(
+            spec, cfg, offspring.nodes.reshape(C * lam, spec.n_n, 3),
+            offspring.outs.reshape(C * lam, spec.n_o), in_planes,
+            golden_vals, group)
+        return select_segment(state, key, offspring,
+                              mets.reshape(C, lam, M.N_METRICS),
+                              powers.reshape(C, lam), thr_mat)
 
     return step
 

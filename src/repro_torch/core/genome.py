@@ -13,6 +13,7 @@ int32 tensors, with any leading batch dims written out:
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 from typing import NamedTuple
 
 import numpy as np
@@ -131,3 +132,109 @@ def critical_path_ps(genome: Genome, spec: CGPSpec) -> torch.Tensor:
         d = torch.maximum(d_in[:, 0], d_in1) + delay_tab[func]
         depth[:, spec.n_i + k] = torch.where(act[:, spec.n_i + k], d, 0.0)
     return torch.gather(depth, 1, outs).amax(dim=1).reshape(batch)
+
+
+# --------------------------------------------------------------------------
+# Canonical phenotype form (the dedup cache's key, ``core.evalcache``)
+# --------------------------------------------------------------------------
+#
+# CGP genotypes are highly redundant: most genes are inactive, so many
+# genotypes encode the same circuit.  The canonical form of the active
+# subgraph is the cache key of an evaluation:
+#
+#   * active nodes are compacted to the front of the node array in their
+#     original (topological) order and every fan-in / output gene is
+#     renumbered accordingly;
+#   * the unused second fan-in of a one-input gate is zeroed;
+#   * inactive genes are dropped (the tail of the canonical array is zero
+#     and left out of the digest).
+#
+# Two genotypes share a canonical form iff their active subgraphs are gate
+# for gate identical (commutative input swaps are not folded).  The digest
+# is a 16-byte BLAKE2b over the canonical genes, byte for byte the JAX
+# package's.  Host numpy by design: the dedup loop decides on the host.
+
+PHENOTYPE_DIGEST_SIZE = 16  # bytes of BLAKE2b digest per phenotype
+
+
+def active_mask_np(nodes: np.ndarray, outs: np.ndarray,
+                   spec: CGPSpec) -> np.ndarray:
+    """(R, n_wires) bool active mask of a stacked population on the host:
+    one reverse sweep, vectorized over the population."""
+    nodes = np.asarray(nodes)
+    outs = np.asarray(outs)
+    R = nodes.shape[0]
+    n_i = spec.n_i
+    act = np.zeros((R, spec.n_wires), dtype=bool)
+    act[np.arange(R)[:, None], outs] = True
+    rows = np.arange(R)
+    for k in range(spec.n_n - 1, -1, -1):
+        is_act = act[:, n_i + k]
+        uses_b = is_act & (gates.ONE_INPUT[nodes[:, k, 2]] == 0)
+        act[rows, nodes[:, k, 0]] |= is_act
+        act[rows, nodes[:, k, 1]] |= uses_b
+    return act
+
+
+def canonicalize_phenotypes_np(nodes: np.ndarray, outs: np.ndarray,
+                               spec: CGPSpec
+                               ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Canonical active-subgraph form of a stacked population.
+
+    Args:
+      nodes: (R, n_n, 3) int32; outs: (R, n_o) int32 (host arrays).
+
+    Returns:
+      (canon_nodes (R, n_n, 3), canon_outs (R, n_o), n_active (R,)): per
+      genome, the first ``n_active[r]`` rows of ``canon_nodes[r]`` hold the
+      active subgraph in topological order with renumbered fan-ins and
+      zeroed unary second fan-ins; the tail rows are zero.
+    """
+    nodes = np.asarray(nodes)
+    outs = np.asarray(outs)
+    R = nodes.shape[0]
+    n_i, n_n = spec.n_i, spec.n_n
+    node_act = active_mask_np(nodes, outs, spec)[:, n_i:]      # (R, n_n)
+    new_idx = np.cumsum(node_act, axis=1, dtype=np.int32) - 1
+    n_active = node_act.sum(axis=1).astype(np.int32)
+
+    def remap(w):  # wire index -> canonical wire index, rows aligned
+        k = np.clip(w - n_i, 0, n_n - 1)
+        return np.where(w >= n_i,
+                        n_i + np.take_along_axis(new_idx, k, axis=1), w)
+
+    func = nodes[:, :, 2]
+    unary = gates.ONE_INPUT[func] == 1
+    m0 = remap(nodes[:, :, 0])
+    m1 = remap(np.where(unary, 0, nodes[:, :, 1]))
+    canon = np.zeros((R, n_n, 3), np.int32)
+    r_idx, k_idx = np.nonzero(node_act)
+    pos = new_idx[r_idx, k_idx]
+    canon[r_idx, pos, 0] = m0[r_idx, k_idx]
+    canon[r_idx, pos, 1] = m1[r_idx, k_idx]
+    canon[r_idx, pos, 2] = func[r_idx, k_idx]
+    return canon, remap(outs).astype(np.int32), n_active
+
+
+def phenotype_digests(nodes: np.ndarray, outs: np.ndarray,
+                      spec: CGPSpec) -> list[bytes]:
+    """Per-genome phenotype digests of a stacked population: equal for
+    genotypes with the same active subgraph."""
+    canon, canon_outs, n_active = canonicalize_phenotypes_np(nodes, outs,
+                                                             spec)
+    digests = []
+    for r in range(canon.shape[0]):
+        na = int(n_active[r])
+        h = hashlib.blake2b(digest_size=PHENOTYPE_DIGEST_SIZE)
+        h.update(na.to_bytes(4, "little"))
+        h.update(canon[r, :na].tobytes())
+        h.update(canon_outs[r].tobytes())
+        digests.append(h.digest())
+    return digests
+
+
+def phenotype_digest(genome: Genome, spec: CGPSpec) -> bytes:
+    """One genome's phenotype digest (its tensors on any device)."""
+    return phenotype_digests(torch.as_tensor(genome.nodes).cpu()[None],
+                             torch.as_tensor(genome.outs).cpu()[None],
+                             spec)[0]

@@ -28,6 +28,18 @@ chunk exactly over the whole cube and prints which rows are certified:
       --nodes 768 --constraint "mae=0.5,er=60" --constraint "wce=2.0" \
       --seeds 16 --lam 8 --eval-mode sampled --sample-size 16384 \
       --certify --certify-budget 8 --results-dir R
+
+The sweep engine's execution knobs: ``--dedup`` evaluates each unique
+active subgraph once (the runs are the same); ``--pods N --pod-index I``
+runs pod I's slice of the chunk plan into a shared ``--results-dir`` (one
+process per pod); ``--async-commit`` writes shards and checkpoints on a
+background thread (the same bytes); ``--migrate-every K`` publishes each
+pod's elites every K chunks and folds the other pods' into later chunks
+(this changes the results and the grid fingerprint):
+
+  PYTHONPATH=src python -m repro_torch.launch.evolve --width 8 \
+      --constraint "mae=0.5,er=60" --seeds 64 --dedup --async-commit \
+      --pods 2 --pod-index 0 --migrate-every 1 --results-dir R
 """
 from __future__ import annotations
 
@@ -101,6 +113,15 @@ def main(argv=None):
                          "resolves the measured tuning table "
                          "(kernels/tune.py).  The runs are the same either "
                          "way")
+    ap.add_argument("--dedup", action="store_true",
+                    help="phenotype-dedup evaluation cache: evaluate each "
+                         "unique active subgraph once per generation and "
+                         "reuse cached results across generations.  "
+                         "Execution-only: the runs are the same with or "
+                         "without it")
+    ap.add_argument("--dedup-cache-size", type=int, default=1 << 16,
+                    help="entry bound of the cross-generation phenotype LRU "
+                         "(default: 65536)")
     ap.add_argument("--eval-mode", default="exhaustive",
                     choices=["exhaustive", "sampled"],
                     help="evaluation inputs: 'exhaustive' scores every "
@@ -132,18 +153,61 @@ def main(argv=None):
     ap.add_argument("--certify-budget", type=int, default=8,
                     help="base escalations per sweep chunk; the cap ramps "
                          "to twice that by the last chunk (default: 8)")
+    ap.add_argument("--pods", type=int, default=1,
+                    help="pod-shard the sweep: partition the chunk plan "
+                         "over N pods and run only this process's slice "
+                         "(launch once per pod with a shared --results-dir)")
+    ap.add_argument("--pod-index", type=int, default=None,
+                    help="which pod slice this process runs (default: the "
+                         "active mesh's pod coordinate, else the "
+                         "torch.distributed rank, else 0)")
+    ap.add_argument("--async-commit", action="store_true",
+                    help="commit result shards / checkpoints on a bounded "
+                         "background thread so the next chunk runs while "
+                         "the previous one's npz write + fsync runs.  "
+                         "Execution-only: the committed bytes, their order "
+                         "and the crash guarantees are the synchronous "
+                         "path's")
+    ap.add_argument("--migrate-every", type=int, default=0,
+                    help="island-model elite migration between pods: every "
+                         "N chunks of its own slice a pod publishes its "
+                         "per-sigma elite genomes to --results-dir, and "
+                         "later chunks fold the pods' published elites into "
+                         "their initial population under a deterministic "
+                         "merge rule.  Changes the results (joins the grid "
+                         "fingerprint when on); 0 disables (default)")
+    ap.add_argument("--migrate-timeout", type=float, default=120.0,
+                    help="seconds to wait for a lagging pod's migrant file "
+                         "before failing (default: 120)")
     ap.add_argument("--serial", action="store_true",
                     help="reference serial loop instead of the batched engine")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default: the hand-written kernel) or 'cpu' "
                          "(the plain PyTorch path)")
     args = ap.parse_args(argv)
-    if args.export_artifacts and (args.serial or not args.results_dir):
-        ap.error("--export-artifacts reads the sweep back from its result "
-                 "shards: it needs --results-dir and the batched engine")
+    if args.pods > 1 and not args.results_dir:
+        ap.error("--pods > 1 needs a shared --results-dir (the shard set "
+                 "is the only cross-pod resume state)")
+    if args.serial and args.pods > 1:
+        ap.error("--serial is the single-process reference loop; it cannot "
+                 "pod-shard the grid (drop --serial or --pods)")
+    if args.serial and args.dedup:
+        ap.error("--dedup lives in the batched sweep engine; drop --serial")
     if args.serial and args.certify:
         ap.error("--certify's escalation driver lives in the batched sweep "
                  "engine; drop --serial")
+    if args.serial and args.async_commit:
+        ap.error("--async-commit's background committer lives in the "
+                 "batched sweep engine; drop --serial")
+    if args.serial and args.migrate_every:
+        ap.error("--migrate-every lives in the batched sweep engine; drop "
+                 "--serial")
+    if args.migrate_every and not args.results_dir:
+        ap.error("--migrate-every needs a --results-dir: migrant files "
+                 "ride the shared results directory (DESIGN.md section 11)")
+    if args.export_artifacts and (args.serial or not args.results_dir):
+        ap.error("--export-artifacts reads the sweep back from its result "
+                 "shards: it needs --results-dir and the batched engine")
     if args.export_artifacts and args.kind != "mul":
         ap.error("--export-artifacts builds multiplier LUT artifacts; "
                  "--kind add is not exportable")
@@ -162,6 +226,12 @@ def main(argv=None):
         records = run_sweep_serial(cfg, constraints, seeds=range(args.seeds),
                                    device=args.device)
     else:
+        pod = args.pod_index
+        if args.pods > 1 and pod is None:
+            # resolved once here, so the printed label and the slice run
+            # cannot disagree
+            from repro_torch.parallel import ctx
+            pod = ctx.default_pod_index(args.pods)
         result = run_sweep_batched(
             cfg, constraints, seeds=range(args.seeds),
             sweep=SweepConfig(chunk_size=args.chunk_size,
@@ -169,10 +239,16 @@ def main(argv=None):
                               keep_history=args.history or (
                                   "none" if args.no_history else "full"),
                               results_dir=args.results_dir,
-                              layout=args.layout),
+                              layout=args.layout, n_pods=args.pods,
+                              pod_index=pod, dedup=args.dedup or None,
+                              dedup_cache_size=args.dedup_cache_size,
+                              async_commit=args.async_commit,
+                              migrate_every=args.migrate_every,
+                              migrate_timeout=args.migrate_timeout),
             device=args.device)
         records = result.records
-        print(f"[evolve] {result.completed}/{result.n_runs} runs "
+        tag = f"pod {pod}/{args.pods}: " if args.pods > 1 else ""
+        print(f"[evolve] {tag}{result.completed}/{result.n_runs} runs "
               f"@ {result.runs_per_sec:.2f} runs/s", flush=True)
         if args.certify and result.certify_stats is not None:
             st = result.certify_stats
@@ -180,6 +256,18 @@ def main(argv=None):
                   f"call, {st['certified_rows']}/{result.n_runs} rows "
                   f"certified exact (budget {st['budget']}/chunk)",
                   flush=True)
+        if args.migrate_every and result.migrate_stats is not None:
+            st = result.migrate_stats
+            print(f"[evolve] migrate: {st['published']} epochs published, "
+                  f"{st['imported']} elites imported, {st['adopted']} runs "
+                  f"adopted a migrant ({st['waited_s']:.1f}s waiting on "
+                  f"peers)", flush=True)
+        if args.dedup and result.dedup_stats is not None:
+            st = result.dedup_stats
+            print(f"[evolve] dedup cache: hit rate {st['hit_rate']:.1%} "
+                  f"({st['evaluated']}/{st['candidates']} candidates "
+                  f"evaluated, {st['lru_hits']} LRU hits, "
+                  f"{st['evictions']} evictions)", flush=True)
         if args.results_dir:
             reader = result.reader()
             print(f"[evolve] {len(reader.spans())} result shards "

@@ -97,3 +97,99 @@ def test_chip_smoke_help_without_gpu():
                          capture_output=True, text=True, cwd=REPO,
                          timeout=120)
     assert out.returncode == 0 and "chip_smoke" in out.stdout
+
+
+# ---------------------------------------------------------------------------
+# the sweep engine's execution knobs: --dedup, --dedup-cache-size, --pods,
+# --pod-index, --async-commit, --migrate-every, --migrate-timeout
+# ---------------------------------------------------------------------------
+
+KNOBS = ["--dedup", "--dedup-cache-size", "--pods", "--pod-index",
+         "--async-commit", "--migrate-every", "--migrate-timeout"]
+SMALL = ["--width", "2", "--kind", "add", "--nodes", "30", "--constraint",
+         "mae=1", "--constraint", "er=50", "--generations", "20", "--lam",
+         "3", "--seeds", "2", "--chunk-size", "2"]
+
+
+def test_cli_help_lists_the_engine_knobs():
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.evolve", "--help"],
+        capture_output=True, text=True, cwd=REPO, timeout=120,
+        env=dict(os.environ, PYTHONPATH=os.path.join(REPO, "src")))
+    assert out.returncode == 0
+    for flag in KNOBS:
+        assert flag in out.stdout
+
+
+GUARDS = {
+    "pods-without-results-dir": ["--pods", "2"],
+    "serial-pods": ["--serial", "--pods", "2", "--results-dir", "R"],
+    "serial-dedup": ["--serial", "--dedup"],
+    "serial-async-commit": ["--serial", "--async-commit"],
+    "serial-migrate": ["--serial", "--migrate-every", "1", "--results-dir",
+                       "R"],
+    "migrate-without-results-dir": ["--migrate-every", "1"],
+}
+
+
+@pytest.mark.parametrize("case", sorted(GUARDS))
+def test_cli_guards_match_the_reference(case, capsys, monkeypatch):
+    args = SMALL + GUARDS[case]
+    with pytest.raises(SystemExit) as exc:
+        t_evolve.main(args + ["--device", "cpu"])
+    assert exc.value.code == 2
+    got = capsys.readouterr().err.splitlines()[-1]
+    monkeypatch.setattr(sys, "argv", ["repro.launch.evolve", *args])
+    with pytest.raises(SystemExit) as exc:
+        j_evolve.main()
+    assert exc.value.code == 2
+    want = capsys.readouterr().err.splitlines()[-1]
+    # the same words after the program's name
+    assert got.split(": ", 1)[1] == want.split(": ", 1)[1]
+
+
+def _report(out: str, prefix: str) -> str:
+    return next(line for line in out.splitlines() if line.startswith(prefix))
+
+
+def test_cli_dedup_and_migration_report_lines(tmp_path, capsys, monkeypatch):
+    args = SMALL + ["--dedup", "--dedup-cache-size", "64", "--async-commit",
+                    "--migrate-every", "1", "--migrate-timeout", "5"]
+    monkeypatch.setattr(sys, "argv", ["repro.launch.evolve", *args,
+                                      "--results-dir", str(tmp_path / "j")])
+    j_evolve.main()
+    want = capsys.readouterr().out
+    t_evolve.main(args + ["--results-dir", str(tmp_path / "t"), "--device",
+                          "cpu"])
+    got = capsys.readouterr().out
+    for prefix in ("[evolve] dedup cache:", "[evolve] migrate:"):
+        assert _report(got, prefix) == _report(want, prefix)
+    assert _rows(got) == _rows(want)
+    # without the knobs, neither line
+    t_evolve.main(SMALL + ["--device", "cpu"])
+    plain = capsys.readouterr().out
+    assert "dedup cache" not in plain and "migrate:" not in plain
+
+
+def test_cli_two_pods(tmp_path, capsys):
+    args = SMALL + ["--pods", "2", "--results-dir", str(tmp_path),
+                    "--device", "cpu", "--history", "summary"]
+    t_evolve.main(args + ["--pod-index", "1"])
+    out = capsys.readouterr().out
+    assert _summary(out).startswith("[evolve] pod 1/2: 2/4 runs @ ")
+    t_evolve.main(args + ["--pod-index", "0"])
+    out = capsys.readouterr().out
+    assert _summary(out).startswith("[evolve] pod 0/2: 4/4 runs @ ")
+    assert "2 result shards (4/4 runs" in out
+    # outside a process group the pod defaults to 0
+    t_evolve.main(args)
+    assert _summary(capsys.readouterr().out).startswith(
+        "[evolve] pod 0/2: 4/4 runs @ 0.00 runs/s")
+
+
+def test_cli_knobs_keep_the_default_device(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        t_evolve.main(SMALL + ["--dedup", "--async-commit", "--pods", "2",
+                               "--pod-index", "0", "--migrate-every", "1",
+                               "--results-dir", "unused"])

@@ -6,6 +6,7 @@ import shutil
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -45,7 +46,8 @@ def test_port_files_found():
                 "kernels/flash_attention.py", "kernels/ref.py",
                 "parallel/ctx.py", "parallel/spawn.py", "launch/mesh.py",
                 "core/pareto.py", "core/sampling.py", "core/certify.py",
-                "data/pipeline.py"):
+                "data/pipeline.py", "core/evalcache.py", "core/commit.py",
+                "core/migrate.py"):
         assert mod in names
     assert [os.path.basename(p) for p in EXAMPLES] == [
         "pareto_sweep_torch.py", "quickstart_torch.py"]
@@ -219,3 +221,43 @@ def test_chip_smoke_fails_alone(tmp_path):
                          cwd=tmp_path)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_commit_worker_gets_host_arrays_only(tmp_path, monkeypatch):
+    """The background committer is handed numpy arrays only: no tensor (and
+    so no CUDA call) reaches its worker thread."""
+    from repro_torch.core import commit
+    from repro_torch.core.evolve import EvolveConfig
+    from repro_torch.core.fitness import ConstraintSpec
+    from repro_torch.core.search import SearchConfig
+    from repro_torch.core.sweep import SweepConfig, run_sweep_batched
+    handed = []
+    real = commit.ChunkCommitter.submit
+
+    def recording(self, fn, *args, **kwargs):
+        handed.append((args, kwargs))
+        return real(self, fn, *args, **kwargs)
+
+    monkeypatch.setattr(commit.ChunkCommitter, "submit", recording)
+
+    def leaves(x):
+        if isinstance(x, dict):
+            for v in x.values():
+                yield from leaves(v)
+        elif isinstance(x, (tuple, list)):
+            for v in x:
+                yield from leaves(v)
+        else:
+            yield x
+
+    run_sweep_batched(
+        SearchConfig(width=2, kind="add", n_n=20,
+                     evolve=EvolveConfig(generations=3, lam=2)),
+        [ConstraintSpec(mae=1.0)], (0, 1, 2), SweepConfig(
+            chunk_size=2, results_dir=str(tmp_path / "r"),
+            checkpoint_dir=str(tmp_path / "c"), async_commit=True),
+        device="cpu")
+    assert len(handed) == 4          # two shards and two checkpoints
+    found = list(leaves(handed))
+    assert not [x for x in found if isinstance(x, torch.Tensor)]
+    assert any(isinstance(x, np.ndarray) for x in found)
