@@ -2,9 +2,12 @@
 
 The port's copy of ``repro.checkpoint.store``: ``atomic_write_json`` and
 ``atomic_save_npz``, and the step checkpoints (``save_checkpoint``,
-``committed_steps``, ``latest_step``, ``load_metadata``,
-``load_checkpoint``, ``cleanup``) in the reference's on-disk layout, so a
-checkpoint written by either package loads into the other.
+``AsyncCheckpointer``, ``committed_steps``, ``latest_step``,
+``load_metadata``, ``load_checkpoint``, ``cleanup``) in the reference's
+on-disk layout, so a checkpoint written by either package loads into the
+other.  A checkpoint is a nested dict of arrays (numpy arrays or tensors);
+bfloat16 leaves are written as the reference writes them, 2-byte void
+records (``'<V2'``) holding the bfloat16 bits, and read back by bit view.
 
 Presence of a file under its final name is the commit marker every reader
 relies on (result shards, manifests, registry artifacts): the data is
@@ -17,9 +20,16 @@ import json
 import os
 import shutil
 import tempfile
+import threading
+import time
 from typing import Any
 
 import numpy as np
+import torch
+
+from repro_torch import tree as T
+
+BF16_RECORD = np.dtype("V2")   # numpy's stand-in for a bfloat16 leaf
 
 
 def _fsync_path(path: str) -> None:
@@ -73,10 +83,10 @@ def atomic_save_npz(path: str, arrays: dict[str, np.ndarray]) -> None:
 #
 # Layout (the reference's, file for file):  <dir>/step_<N>/
 #   manifest.json   step, n_leaves, metadata, and each leaf's shape / dtype
-#   leaf_<i>.npy    one array per key of the dict, keys in sorted order:
-#                   ``jax.tree_util.tree_flatten``'s order for a dict, so a
-#                   checkpoint written by either package loads into the
-#                   other with no leaf swapped
+#   leaf_<i>.npy    one array per leaf of the tree, dict keys sorted at
+#                   every level: ``jax.tree_util.tree_flatten``'s order for
+#                   nested dicts, so a checkpoint written by either package
+#                   loads into the other with no leaf swapped
 #   _COMPLETE       commit marker
 # A step is written under ``step_<N>.tmp`` and renamed, so a crash mid-save
 # never damages the newest committed step.
@@ -88,11 +98,36 @@ def _step_dir(ckpt_dir: str, step: int) -> str:
     return os.path.join(ckpt_dir, f"step_{step:08d}")
 
 
+def to_host(x) -> np.ndarray:
+    """A leaf as a numpy array of its own (a copy); a bfloat16 tensor as
+    2-byte void records of its bits."""
+    if isinstance(x, torch.Tensor):
+        t = x.detach().to("cpu", copy=True)
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view(BF16_RECORD)
+        return t.numpy()
+    return np.array(x)
+
+
+def _save_leaf(path: str, arr: np.ndarray) -> str:
+    """Write one leaf; returns the dtype name the manifest records."""
+    if arr.dtype != BF16_RECORD:
+        np.save(path, arr)
+        return str(arr.dtype)
+    # the header ``np.save`` writes for a bfloat16 array (ml_dtypes)
+    with open(path, "wb") as f:
+        np.lib.format.write_array_header_1_0(
+            f, {"descr": "<V2", "fortran_order": False, "shape": arr.shape})
+        f.write(np.ascontiguousarray(arr).tobytes())
+    return "bfloat16"
+
+
 def save_checkpoint(ckpt_dir: str, step: int, tree: dict[str, Any],
                     metadata: dict | None = None) -> str:
-    """Atomic synchronous save of the arrays of ``tree`` as step ``step``.
-    Returns the step's path."""
-    leaves = [tree[k] for k in sorted(tree)]
+    """Atomic synchronous save of the leaves of ``tree`` (a nested dict of
+    numpy arrays or tensors) as step ``step``.  Returns the step's path."""
+    leaves = [to_host(x) if isinstance(x, torch.Tensor) else np.asarray(x)
+              for x in T.leaves(tree)]
     final = _step_dir(ckpt_dir, step)
     tmp = final + ".tmp"
     if os.path.exists(tmp):
@@ -105,11 +140,9 @@ def save_checkpoint(ckpt_dir: str, step: int, tree: dict[str, Any],
         "metadata": metadata or {},
         "leaves": [],
     }
-    for i, leaf in enumerate(leaves):
-        arr = np.asarray(leaf)
-        np.save(os.path.join(tmp, f"leaf_{i}.npy"), arr)
-        manifest["leaves"].append(
-            {"shape": list(arr.shape), "dtype": str(arr.dtype)})
+    for i, arr in enumerate(leaves):
+        dtype = _save_leaf(os.path.join(tmp, f"leaf_{i}.npy"), arr)
+        manifest["leaves"].append({"shape": list(arr.shape), "dtype": dtype})
     atomic_write_json(os.path.join(tmp, "manifest.json"), manifest)
     with open(os.path.join(tmp, _MARKER), "w") as f:
         f.write("ok")
@@ -120,6 +153,43 @@ def save_checkpoint(ckpt_dir: str, step: int, tree: dict[str, Any],
     os.rename(tmp, final)
     _fsync_path(ckpt_dir)
     return final
+
+
+class AsyncCheckpointer:
+    """Overlaps checkpoint writes with training: ``save`` copies the tree to
+    the host before it returns (the caller may overwrite its tensors at
+    once) and writes it on a background thread, one save in flight (a
+    second ``save`` waits for the first).  ``wait`` joins the write and
+    raises its error, if any.  ``write_seconds`` holds each finished
+    write's duration on the writer thread."""
+
+    def __init__(self):
+        self._thread: threading.Thread | None = None
+        self._error: BaseException | None = None
+        self.write_seconds: list[float] = []
+
+    def save(self, ckpt_dir: str, step: int, tree: dict[str, Any],
+             metadata: dict | None = None) -> None:
+        self.wait()
+        host_tree = T.map(to_host, tree)
+
+        def write():
+            try:
+                t0 = time.perf_counter()
+                save_checkpoint(ckpt_dir, step, host_tree, metadata)
+                self.write_seconds.append(time.perf_counter() - t0)
+            except Exception as e:  # noqa: BLE001 — re-raised by wait
+                self._error = e
+        self._thread = threading.Thread(target=write, daemon=True)
+        self._thread.start()
+
+    def wait(self) -> None:
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise err
 
 
 def committed_steps(ckpt_dir: str) -> list[int]:
@@ -146,25 +216,40 @@ def load_metadata(ckpt_dir: str, step: int) -> dict:
         return json.load(f)["metadata"]
 
 
+def _as_template(arr: np.ndarray, tmpl, where: str):
+    if tuple(arr.shape) != tuple(tmpl.shape):
+        raise ValueError(f"{where}: checkpoint {tuple(arr.shape)} vs "
+                         f"template {tuple(tmpl.shape)}")
+    if isinstance(tmpl, torch.Tensor):
+        if arr.dtype == BF16_RECORD:
+            t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+        else:
+            t = torch.from_numpy(arr)
+        return t.to(device=tmpl.device, dtype=tmpl.dtype)
+    tmpl = np.asarray(tmpl)
+    if arr.dtype == BF16_RECORD and tmpl.dtype != BF16_RECORD:
+        arr = torch.from_numpy(arr.view(np.int16)).view(
+            torch.bfloat16).float().numpy()
+    return arr.astype(tmpl.dtype)
+
+
 def load_checkpoint(ckpt_dir: str, step: int, template: dict[str, Any]
-                    ) -> tuple[dict[str, np.ndarray], dict]:
-    """Load step ``step`` as a dict of ``template``'s keys: numpy arrays,
-    each cast to its template array's dtype.  Returns (tree, metadata)."""
+                    ) -> tuple[dict[str, Any], dict]:
+    """Load step ``step`` into the structure of ``template`` (a nested
+    dict).  Where the template's leaf is a tensor the result is a tensor of
+    its dtype on its device, else a numpy array cast to the leaf's dtype.
+    Returns (tree, metadata)."""
     path = _step_dir(ckpt_dir, step)
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
-    if manifest["n_leaves"] != len(template):
+    tmpl_leaves = T.leaves(template)
+    if manifest["n_leaves"] != len(tmpl_leaves):
         raise ValueError(f"checkpoint has {manifest['n_leaves']} leaves, "
-                         f"template {len(template)}: structure changed")
-    out = {}
-    for i, key in enumerate(sorted(template)):
-        tmpl = np.asarray(template[key])
-        arr = np.load(os.path.join(path, f"leaf_{i}.npy"))
-        if arr.shape != tmpl.shape:
-            raise ValueError(f"leaf {i} ({key}): checkpoint {arr.shape} vs "
-                             f"template {tmpl.shape}")
-        out[key] = arr.astype(tmpl.dtype)
-    return {k: out[k] for k in template}, manifest["metadata"]
+                         f"template {len(tmpl_leaves)}: structure changed")
+    out = [_as_template(np.load(os.path.join(path, f"leaf_{i}.npy")), tmpl,
+                        f"leaf {i}")
+           for i, tmpl in enumerate(tmpl_leaves)]
+    return T.unflatten(template, out), manifest["metadata"]
 
 
 def cleanup(ckpt_dir: str, keep: int = 3) -> None:

@@ -1,12 +1,12 @@
 """Model configuration of the port: the dense decoder-only path.
 
 The port's copy of the fields of ``repro.configs.base.ModelConfig`` that a
-dense GQA transformer with a SwiGLU MLP and a tied output head (as
-``llama3_2_1b``) reads, with ``pdtype()`` / ``adtype()`` returning torch
-dtypes.  ``get_arch`` resolves an architecture id to its config module; of
-the reference's ten architectures only ``llama3_2_1b`` is ported, and the
-others raise (ROADMAP A13), as do MoE, SSM, cross-attention and the audio /
-vision front ends.
+dense GQA transformer with a SwiGLU MLP and a tied or untied output head
+reads (serving and training), with ``pdtype()`` / ``adtype()`` returning
+torch dtypes, and the reference's TRAIN_4K shape.  ``get_arch`` resolves an
+architecture id to its config module; of the reference's ten architectures
+the four dense ones are ported (``PORTED``), and the others raise, as do
+MoE, SSM, cross-attention and the audio / vision front ends.
 """
 from __future__ import annotations
 
@@ -43,9 +43,14 @@ class ModelConfig:
     vocab: int = 1024
     rope_theta: float = 10000.0
     norm_eps: float = 1e-5
+    tie_embeddings: bool = True  # False: a separate (d_model, vocab) lm_head
     period: tuple[LayerSpec, ...] = (LayerSpec(),)
     param_dtype: str = "float32"
     act_dtype: str = "float32"
+    remat: bool = False         # recompute each layer in the backward pass
+    # "all" = save nothing inside a layer; "block_outputs" = save the
+    # attention and FFN outputs (recompute within each block only)
+    remat_policy: str = "all"
     loss_vocab_chunk: int = 0   # sequence chunk of the CE; 0 = unchunked
     approx_matmul: bool = False  # evolved approximate-multiplier emulation
     # "blocked" (online softmax) | "naive" | "pallas" (the flash kernel,
@@ -72,12 +77,23 @@ class ModelConfig:
         return getattr(torch, self.act_dtype)
 
 
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One input-shape cell of the reference."""
+    name: str
+    seq_len: int
+    global_batch: int
+    mode: str                   # "train" | "prefill" | "decode"
+
+
+TRAIN_4K = ShapeConfig("train_4k", 4096, 256, "train")
+
 ARCH_IDS = (
     "mamba2_1_3b", "phi4_mini_3_8b", "stablelm_1_6b", "stablelm_12b",
     "llama3_2_1b", "qwen3_moe_30b_a3b", "kimi_k2_1t_a32b",
     "jamba_1_5_large_398b", "llama3_2_vision_11b", "musicgen_large",
 )
-PORTED = ("llama3_2_1b",)
+PORTED = ("llama3_2_1b", "phi4_mini_3_8b", "stablelm_1_6b", "stablelm_12b")
 
 
 def get_arch(arch_id: str):

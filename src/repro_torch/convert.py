@@ -1,17 +1,24 @@
-"""Carry the reference package's state across to the port.
+"""Carry state across between the reference package and the port.
 
-The system's "weights" are its genomes and evolution state, and the
-served LM's parameters.  These helpers take arrays from the JAX package
-(anything ``numpy.asarray`` reads: genome arrays, a stacked ``EvolveState``
-with its PRNG keys, threshold matrices, a model parameter tree) and return
-the port's tensors on a given device, so both packages can be started from
-the same state.  Nothing here imports JAX.
+The system's "weights" are its genomes and evolution state, and the LM's
+parameters and optimizer state.  These helpers take arrays from the JAX
+package (anything ``numpy.asarray`` reads: genome arrays, a stacked
+``EvolveState`` with its PRNG keys, threshold matrices, a model parameter
+tree, an optimizer state) and return the port's tensors on a given device,
+so both packages can be started from the same state; ``reference_params``
+and ``reference_opt_state`` go the other way, into the reference's trees
+of numpy arrays.  bfloat16 travels as numpy's 2-byte void records (the
+bytes of the bfloat16 value, what the reference's checkpoints hold), or as
+any array ``numpy.asarray`` widens exactly to float32.  Nothing here
+imports JAX.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch import tree as T
+from repro_torch.checkpoint.store import BF16_RECORD, to_host
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.evolve import EvolveState
 from repro_torch.core.genome import Genome
@@ -51,30 +58,115 @@ def evolve_state(s, device: torch.device | str = "cpu") -> EvolveState:
                        key=keys(s.key, device))
 
 
-def model_params(tree, cfg: ModelConfig, device: torch.device | str = "cpu"
-                 ) -> Transformer:
-    """The reference's parameter tree as the port's ``Transformer``.
+def to_tensor(x, dtype: torch.dtype, device: torch.device | str = "cpu"
+              ) -> torch.Tensor:
+    """A leaf (tensor, numpy array, 2-byte void records of bfloat16, or
+    anything ``numpy.asarray`` reads) as a ``dtype`` tensor on
+    ``device``."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().to(device=device, dtype=dtype)
+    a = np.asarray(x)
+    if a.dtype == BF16_RECORD:
+        t = torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+        return t.to(device=device, dtype=dtype)
+    if a.dtype.kind == "V" or a.dtype.name == "bfloat16":
+        a = a.astype(np.float32)          # ml_dtypes' bfloat16, exactly
+    return torch.as_tensor(np.array(a), device=device).to(dtype)
 
-    ``tree`` is ``repro.models.model.init_params``'s output: ``embed.tokens``,
-    ``final_norm`` and ``layers.layer{j}``
-    with every leaf stacked over ``n_periods``; layer ``i`` of the port is
-    period ``i // len(period)``, slot ``i % len(period)``.  Values go
-    through float32, so bfloat16 weights arrive unchanged."""
-    params = skeleton(cfg, device)
-    state = {"embed.tokens": tree["embed"]["tokens"],
-             "final_norm": tree["final_norm"]}
+
+def _layer_names(cfg: ModelConfig):
+    """(port name, reference (period slot, stack index), part, leaf) of
+    every per-layer parameter: layer ``i`` of the port is period ``i //
+    len(period)``, slot ``i % len(period)``."""
     period = len(cfg.period)
     for i in range(cfg.n_layers):
-        lt = tree["layers"][f"layer{i % period}"]
-        for part in ("mixer", "ffn"):
-            for name, leaf in lt[part].items():
-                state[f"layers.{i}.{part}.{name}"] = leaf[i // period]
-    own = params.state_dict()
+        for part, names in (("mixer", ("norm", "wk", "wo", "wq", "wv")),
+                            ("ffn", ("norm", "w_down", "w_gate", "w_up"))):
+            for name in names:
+                yield (f"layers.{i}.{part}.{name}", f"layer{i % period}",
+                       i // period, part, name)
+
+
+def reference_tree(params: Transformer, cfg: ModelConfig,
+                   leaf=lambda p: p) -> dict:
+    """``leaf`` of every parameter (the parameter itself by default, or
+    its gradient) in the reference's tree: ``embed.tokens``,
+    ``final_norm``, ``lm_head`` when untied, and ``layers.layer{j}`` with
+    each leaf stacked over ``n_periods`` (a new tensor on the parameters'
+    device)."""
+    own = dict(params.named_parameters())
+    slots: dict = {}
+    for name, slot, _, part, key in _layer_names(cfg):
+        slots.setdefault(slot, {}).setdefault(part, {}).setdefault(
+            key, []).append(leaf(own[name]))
+    tree = {"embed": {"tokens": leaf(own["embed.tokens"])},
+            "final_norm": leaf(own["final_norm"]),
+            "layers": T.map(torch.stack, slots)}
+    if not cfg.tie_embeddings:
+        tree["lm_head"] = leaf(own["lm_head"])
+    return tree
+
+
+def load_reference_tree(params: Transformer, tree, cfg: ModelConfig
+                        ) -> Transformer:
+    """Copy a parameter tree in the reference's layout (leaves: tensors,
+    numpy arrays, bfloat16 records, JAX arrays) into ``params``, each leaf
+    cast to its parameter's dtype and device; returns ``params``."""
+    own = dict(params.named_parameters())
+    state = {"embed.tokens": tree["embed"]["tokens"],
+             "final_norm": tree["final_norm"]}
+    if "lm_head" in tree:
+        state["lm_head"] = tree["lm_head"]
+    for name, slot, idx, part, key in _layer_names(cfg):
+        state[name] = tree["layers"][slot][part][key][idx]
     if set(state) != set(own):
         raise ValueError(f"parameter names differ: reference-only "
                          f"{sorted(set(state) - set(own))}, port-only "
                          f"{sorted(set(own) - set(state))}")
-    params.load_state_dict({k: tensor(np.asarray(v, np.float32),
-                                      own[k].dtype, device)
-                            for k, v in state.items()})
+    with torch.no_grad():
+        for name, p in own.items():
+            src = state[name]
+            if not isinstance(src, torch.Tensor):
+                src = to_tensor(src, p.dtype, p.device)
+            if tuple(src.shape) != tuple(p.shape):
+                raise ValueError(f"{name}: shape {tuple(src.shape)}, "
+                                 f"expected {tuple(p.shape)}")
+            p.copy_(src)
     return params
+
+
+def model_params(tree, cfg: ModelConfig, device: torch.device | str = "cpu"
+                 ) -> Transformer:
+    """The reference's parameter tree as the port's ``Transformer``.
+
+    ``tree`` is ``repro.models.model.init_params``'s output (or
+    ``reference_params``'): ``embed.tokens``, ``final_norm``, ``lm_head``
+    when the head is untied, and ``layers.layer{j}`` with every leaf
+    stacked over ``n_periods``.  Values arrive unchanged (bfloat16 through
+    float32 or as its bits)."""
+    return load_reference_tree(skeleton(cfg, device), tree, cfg)
+
+
+def reference_params(params: Transformer, cfg: ModelConfig) -> dict:
+    """``params`` as the reference's parameter tree of numpy arrays (the
+    inverse of ``model_params``; bfloat16 leaves as 2-byte records)."""
+    return T.map(to_host, reference_tree(params, cfg))
+
+
+def opt_state(tree, device: torch.device | str = "cpu") -> dict:
+    """An optimizer state of the reference (``repro.optim.init_opt_state``
+    / ``apply_gradients`` output, any of its three optimizers, or a loaded
+    checkpoint's) as the port's: the same tree, float32 and int8 tensors
+    on ``device``."""
+    def leaf(x):
+        a = np.asarray(x) if not isinstance(x, torch.Tensor) else x
+        dtype = torch.int8 if a.dtype in (np.int8, torch.int8) \
+            else torch.float32
+        return to_tensor(x, dtype, device)
+    return T.map(leaf, tree)
+
+
+def reference_opt_state(state) -> dict:
+    """The port's optimizer state as the reference's tree of numpy
+    arrays."""
+    return T.map(to_host, state)

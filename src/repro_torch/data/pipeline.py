@@ -1,16 +1,20 @@
-"""Deterministic synthetic token stream (the numpy part of the reference's
-``repro/data/pipeline.py``).
+"""Deterministic synthetic data pipeline and document packing (the port of
+``repro/data/pipeline.py``; numpy only).
 
 The corpus is a seeded Zipf-ish token stream generated per (step, position)
 with a counter-based hash, so a batch is a pure function of its config and
-step.  Sampled evaluation folds it into an operand histogram
+step: a resumed run replays the exact batch sequence.  Training reads it
+through ``synth_batch`` / ``batches`` / ``PrefetchLoader``; sampled
+evaluation folds it into an operand histogram
 (``core.sampling.empirical_histogram``); ``_hash_u32`` is also the counter
-hash of the sample streams.  The prefetching loader and document packing
-belong to training and are not here.
+hash of the sample streams.
 """
 from __future__ import annotations
 
 import dataclasses
+import queue
+import threading
+from typing import Iterator
 
 import numpy as np
 
@@ -61,3 +65,68 @@ def synth_batch(cfg: DataConfig, step: int,
     # next-token targets within the synthetic stream
     tgt = np.roll(toks, -1, axis=1)
     return {"tokens": toks, "targets": tgt}
+
+
+def batches(cfg: DataConfig, start_step: int = 0) -> Iterator[dict]:
+    step = start_step
+    while True:
+        yield synth_batch(cfg, step)
+        step += 1
+
+
+class PrefetchLoader:
+    """Background-thread prefetch over ``batches`` (depth-bounded queue).
+
+    ``close()`` stops the worker; a closed loader drains whatever was
+    already queued and then raises ``StopIteration``: ``__next__`` polls
+    with a timeout, so a ``close()`` issued while it waits is seen too, and
+    it never blocks forever on a queue nobody refills.
+    """
+
+    def __init__(self, cfg: DataConfig, start_step: int = 0, depth: int = 2):
+        self.cfg = cfg
+        self._q: queue.Queue = queue.Queue(maxsize=depth)
+        self._stop = threading.Event()
+        self._step = start_step
+        self._thread = threading.Thread(target=self._worker, daemon=True)
+        self._thread.start()
+
+    def _worker(self):
+        step = self._step
+        while not self._stop.is_set():
+            try:
+                self._q.put(synth_batch(self.cfg, step), timeout=0.2)
+                step += 1
+            except queue.Full:
+                continue
+
+    def __iter__(self):
+        return self
+
+    def __next__(self) -> dict:
+        while True:
+            try:
+                return self._q.get(timeout=0.1)
+            except queue.Empty:
+                if self._stop.is_set():
+                    raise StopIteration
+
+    def close(self):
+        self._stop.set()
+        self._thread.join(timeout=2)
+
+
+def pack_documents(docs: list[list[int]], seq_len: int,
+                   eos: int) -> np.ndarray:
+    """Pack variable-length documents into (N, seq_len) int32 rows with an
+    EOS after each; long documents are split across rows, nothing is
+    truncated, and the last row is padded with EOS."""
+    flat: list[int] = []
+    for d in docs:
+        flat.extend(d)
+        flat.append(eos)
+    n = max(1, (len(flat) + seq_len - 1) // seq_len)
+    out = np.full((n, seq_len), eos, dtype=np.int32)
+    arr = np.asarray(flat[: n * seq_len], dtype=np.int32)
+    out.reshape(-1)[: arr.size] = arr
+    return out

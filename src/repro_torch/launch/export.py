@@ -33,9 +33,18 @@ def main(argv=None) -> int:
                          "registry.json into")
     ap.add_argument("--top-k", type=int, default=1,
                     help="artifacts per constraint group (default: 1)")
+    ap.add_argument("--include-infeasible", action="store_true",
+                    help="also export constraint-violating elites "
+                         "(default: feasible rows only)")
     ap.add_argument("--require-certified", action="store_true",
                     help="only export rows whose metrics are exact-"
                          "certified")
+    ap.add_argument("--width", type=int, default=None,
+                    help="operand bit width override for results "
+                         "directories whose manifest predates problem "
+                         "metadata")
+    ap.add_argument("--kind", default=None, choices=["mul", "add"],
+                    help="circuit kind override (only 'mul' is exportable)")
     ap.add_argument("--verify", metavar="REGISTRY_DIR",
                     help="verify every artifact in an existing registry "
                          "instead of exporting (digest + genome replay + "
@@ -55,8 +64,10 @@ def main(argv=None) -> int:
     if not args.results_dir or not args.out:
         ap.error("--results-dir and --out are required (or use --verify)")
     policy = A.ExportPolicy(top_k=args.top_k,
+                            feasible_only=not args.include_infeasible,
                             require_certified=args.require_certified)
-    registry = A.export_elites(args.results_dir, args.out, policy)
+    registry = A.export_elites(args.results_dir, args.out, policy,
+                               width=args.width, kind=args.kind)
     for e in registry["artifacts"]:
         print(f"[export] {e['file']}: {e['constraint']} seed {e['seed']} "
               f"power_rel={e['power_rel']:.4f} certified={e['certified']}")

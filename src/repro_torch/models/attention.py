@@ -5,7 +5,8 @@ The port of ``repro/models/attention.py``'s dense path.  ``"blocked"`` (the
 default) and ``"naive"`` are plain tensor code; ``attn_impl="pallas"``
 selects the flash-attention kernel (``kernels.ops.flash_attention``: the
 hand-written CUDA kernel on the card, its plain version on the CPU) for
-every full-sequence pass — prefill, ``backbone``/``lm_loss``.  Decode uses
+every full-sequence pass — prefill, ``backbone``/``lm_loss`` — and raises
+under autograd (the kernel has no backward pass).  Decode uses
 a cache local to the device under every ``attn_impl``, as the reference
 does; the sequence-sharded cache of the reference waits for multi-GPU
 support (ROADMAP A11).
@@ -59,7 +60,12 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Online-softmax attention in float32, O(S·block) memory.
 
     q: (B, Sq, H, D); k/v: (B, Skv, Hkv, D), GQA by head repetition; q and
-    k start at position 0."""
+    k start at position 0.  Under ``causal`` the key blocks wholly past a
+    query block's last position are skipped: there they would add exp(-1e30
+    - m) = 0 to every sum and scale it by exp(0) = 1 (key block 0 makes m
+    finite), so the result is the same, with less work (about half of it
+    at long sequences) and none of those blocks' scores kept for a
+    backward pass."""
     B, Sq, H, D = q.shape
     Skv = k.shape[1]
     k, v = _repeat_kv(k, v, H)
@@ -87,6 +93,8 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         m = torch.full((B, H, bq), NEG_INF, dtype=torch.float32, device=dev)
         l = torch.zeros((B, H, bq), dtype=torch.float32, device=dev)
         for kj in range(nkv):
+            if causal and kj * bkv > (qi + 1) * bq - 1:
+                break
             s = torch.einsum("bqhd,bkhd->bhqk", q_i, kb[:, kj])
             mask = kv_valid[kj][None, None, None, :]
             if causal:
@@ -126,6 +134,12 @@ def run_attention(q, k, v, cfg: ModelConfig, causal: bool = True
     if cfg.attn_impl == "naive":
         return naive_attention(q, k, v, causal)
     if cfg.attn_impl == "pallas":
+        if torch.is_grad_enabled() and any(
+                t.requires_grad for t in (q, k, v)):
+            raise NotImplementedError(
+                "attn_impl='pallas' has no backward pass (the flash kernel "
+                "is forward-only, as in the reference): train with "
+                "attn_impl='blocked' or 'naive'")
         # the kernel takes (B, H, S, D): transposed views, no copies
         out = kops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                                    v.transpose(1, 2), causal=causal)

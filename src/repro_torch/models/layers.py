@@ -5,8 +5,10 @@ Parameters live in ``nn.Module``s allocated with an explicit device and
 dtype and filled from an explicit ``torch.Generator``; they keep the
 reference's layouts (projections stored (d_in, d_out), applied as
 ``x @ w``), so ``convert.model_params`` copies JAX weights across as they
-are.  The apply functions mirror ``repro/models/layers.py``.  Serving needs
-no gradients, so parameters are created with ``requires_grad=False``.
+are.  The apply functions mirror ``repro/models/layers.py``.  Parameters
+are created with ``requires_grad=False``, so serving builds no autograd
+graph; the trainer turns gradients on for its own parameters
+(``launch/steps.trainable``).
 """
 from __future__ import annotations
 

@@ -5,6 +5,7 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -193,3 +194,107 @@ def test_cli_knobs_keep_the_default_device(monkeypatch):
         t_evolve.main(SMALL + ["--dedup", "--async-commit", "--pods", "2",
                                "--pod-index", "0", "--migrate-every", "1",
                                "--results-dir", "unused"])
+
+
+# ---------------------------------------------------------------------------
+# the export CLI: the reference's flags, the reference's registry bytes
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def export_results(tmp_path_factory):
+    """A width-3 multiplier sweep's result shards, two runs a constraint,
+    with one run of each constraint marked infeasible (an evolved elite
+    never is: the golden parent meets every constraint), and a copy whose
+    manifest has no ``problem`` block."""
+    import shutil
+    from repro_torch.core.evolve import EvolveConfig
+    from repro_torch.core.fitness import ConstraintSpec
+    from repro_torch.core.search import SearchConfig
+    from repro_torch.core.sweep import SweepConfig, run_sweep_batched
+    d = str(tmp_path_factory.mktemp("export-shards"))
+    run_sweep_batched(
+        SearchConfig(width=3, kind="mul", n_n=60,
+                     evolve=EvolveConfig(generations=30, lam=4)),
+        [ConstraintSpec(mae=2.0), ConstraintSpec(er=40.0)], (0, 1),
+        SweepConfig(results_dir=d, keep_history="summary"), device="cpu")
+    (shard,) = [n for n in os.listdir(d) if n.startswith("shard_")]
+    with np.load(os.path.join(d, shard)) as z:
+        data = {k: z[k] for k in z.files}
+    data["feasible"] = data["feasible"].copy()
+    data["feasible"][::2] = 0
+    np.savez(os.path.join(d, shard), **data)
+    old = str(tmp_path_factory.mktemp("export-old")) + "/shards"
+    shutil.copytree(d, old)
+    man_path = os.path.join(old, "manifest.json")
+    with open(man_path) as f:
+        man = json.load(f)
+    del man["problem"]
+    with open(man_path, "w") as f:
+        json.dump(man, f)
+    return {"new": d, "old": old}
+
+
+def _tree_bytes(d) -> dict:
+    out = {}
+    for name in sorted(os.listdir(d)):
+        with open(os.path.join(d, name), "rb") as f:
+            out[name] = f.read()
+    return out
+
+
+@pytest.mark.parametrize("which,flags", [
+    ("new", []),
+    ("new", ["--include-infeasible"]),
+    ("new", ["--include-infeasible", "--top-k", "2"]),
+    ("old", ["--width", "3", "--kind", "mul"]),
+    ("old", ["--width", "3", "--include-infeasible"]),
+], ids=["default", "infeasible", "infeasible-top2", "old-width-kind",
+        "old-width-infeasible"])
+def test_export_cli_writes_the_reference_registry(which, flags,
+                                                  export_results, tmp_path,
+                                                  capsys):
+    from repro.launch import export as j_export
+    from repro_torch.launch import export as t_export
+    results = export_results[which]
+    outs = {}
+    for pkg, main in (("jax", j_export.main), ("port", t_export.main)):
+        out = str(tmp_path / pkg)
+        assert main(["--results-dir", results, "--out", out, *flags]) == 0
+        outs[pkg] = (_tree_bytes(out), capsys.readouterr().out)
+    (want, want_log), (got, got_log) = outs["jax"], outs["port"]
+    assert got == want
+    assert got_log.replace(str(tmp_path / "port"), "OUT") == \
+        want_log.replace(str(tmp_path / "jax"), "OUT")
+    with open(os.path.join(tmp_path / "port", "registry.json")) as f:
+        arts = json.load(f)["artifacts"]
+    feasible = [bool(a["feasible"]) for a in arts]
+    if "--include-infeasible" in flags:
+        assert len(arts) == 2 * (2 if "2" in flags else 1)
+        assert not all(feasible) or "2" not in flags
+    else:
+        assert feasible == [True, True]
+
+
+@pytest.mark.parametrize("flags,match", [
+    ([], "pass width="),
+    (["--width", "3", "--kind", "add"], "not exportable"),
+])
+def test_export_cli_refuses_as_the_reference(flags, match, export_results,
+                                             tmp_path):
+    from repro.launch import export as j_export
+    from repro_torch.launch import export as t_export
+    for pkg, main in (("jax", j_export.main), ("port", t_export.main)):
+        with pytest.raises(ValueError, match=match):
+            main(["--results-dir", export_results["old"], "--out",
+                  str(tmp_path / pkg), *flags])
+
+
+def test_export_cli_flags_in_help():
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
+               CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.export",
+                          "--help"], capture_output=True, text=True,
+                         timeout=60, cwd=REPO, env=env)
+    assert out.returncode == 0
+    for flag in ("--include-infeasible", "--width", "--kind {mul,add}"):
+        assert flag in out.stdout

@@ -47,10 +47,15 @@ def test_port_files_found():
                 "parallel/ctx.py", "parallel/spawn.py", "launch/mesh.py",
                 "core/pareto.py", "core/sampling.py", "core/certify.py",
                 "data/pipeline.py", "core/evalcache.py", "core/commit.py",
-                "core/migrate.py"):
+                "core/migrate.py", "tree.py", "optim/__init__.py",
+                "optim/optimizer.py", "optim/schedule.py",
+                "optim/compress.py", "runtime/fault.py", "launch/steps.py",
+                "launch/train.py", "configs/phi4_mini_3_8b.py",
+                "configs/stablelm_1_6b.py", "configs/stablelm_12b.py"):
         assert mod in names
     assert [os.path.basename(p) for p in EXAMPLES] == [
-        "pareto_sweep_torch.py", "quickstart_torch.py"]
+        "approx_nn_inference_torch.py", "pareto_sweep_torch.py",
+        "quickstart_torch.py", "train_lm_torch.py"]
     sources = {os.path.relpath(p, PORT) for p in CUDA_FILES}
     assert sources == {"kernels/csrc/cgp_sim.cu", "kernels/csrc/lut_matmul.cu",
                        "kernels/csrc/flash_attention.cu"}
@@ -137,6 +142,35 @@ def test_serve_default_device_raises_without_a_card(monkeypatch):
             call()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--arch", "llama3_2_1b", "--reduced"])
+
+
+def test_train_default_device_raises_without_a_card(monkeypatch):
+    from repro_torch.launch import train
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.train("llama3_2_1b", steps=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--arch", "llama3_2_1b", "--reduced", "--steps", "1"])
+
+
+def test_pallas_attention_raises_under_training():
+    """Neither package can differentiate the flash kernel: training on
+    ``attn_impl="pallas"`` raises, at the step builder and at the
+    attention call, on any device."""
+    import dataclasses
+    from repro_torch.configs import llama3_2_1b
+    from repro_torch.launch import steps
+    from repro_torch.models import attention
+    from repro_torch.optim import OptConfig
+    cfg = dataclasses.replace(llama3_2_1b.reduced(), attn_impl="pallas")
+    with pytest.raises(NotImplementedError, match="no backward"):
+        steps.make_train_step(cfg, OptConfig())
+    q = torch.zeros((1, 8, 4, 8), requires_grad=True)
+    k = torch.zeros((1, 8, 2, 8))
+    with pytest.raises(NotImplementedError, match="no backward"):
+        attention.run_attention(q, k, k, cfg)
+    with torch.no_grad():
+        assert attention.run_attention(q, k, k, cfg).shape == q.shape
 
 
 def test_lut_matmul_never_takes_the_plain_path_off_the_cpu():

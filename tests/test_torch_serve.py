@@ -241,3 +241,45 @@ def test_cli_help_without_gpu():
         assert out.returncode == 0, out.stderr
         for flag in flags:
             assert flag in out.stdout
+
+
+def _example(name):
+    import runpy
+    return runpy.run_path(os.path.join(REPO, "examples", name),
+                          run_name="example")
+
+
+def test_approx_nn_example_matches_reference(registry, capsys, monkeypatch):
+    """``examples/approx_nn_inference_torch.py`` on a registry against the
+    reference's example on the same weights and tokens: the same artifact
+    line and LUT error, the three perplexities within rel 1e-4 (as the
+    quality report)."""
+    from repro.configs.base import ModelConfig as JModelConfig
+    j_main = _example("approx_nn_inference.py")["main"]
+    t_mod = _example("approx_nn_inference_torch.py")
+    want = j_main(["--registry", registry, "--batch", "2", "--seq-len",
+                   "32"])
+    want_out = capsys.readouterr().out
+    jcfg = JModelConfig(name="toy", n_layers=2, d_model=64, n_heads=4,
+                        n_kv_heads=2, d_ff=128, vocab=256)
+    params = convert.model_params(JM.init_params(jax.random.PRNGKey(0),
+                                                 jcfg), t_mod["CONFIG"])
+    got = t_mod["main"](["--registry", registry, "--batch", "2",
+                         "--seq-len", "32", "--device", "cpu"],
+                        params=params)
+    got_out = capsys.readouterr().out
+    assert got_out.splitlines()[:2] == want_out.splitlines()[:2]
+    for k in ("ppl_fp32", "ppl_int8", "ppl_approx"):
+        assert math.isfinite(got[k])
+        assert got[k] == pytest.approx(want[k], rel=1e-4), k
+    assert (got["power_rel"], got["constraint"]) == (want["power_rel"],
+                                                     want["constraint"])
+    assert TQ._LUT is None
+    # the port's own seeded weights: three finite perplexities
+    own = t_mod["main"](["--registry", registry, "--batch", "2",
+                         "--seq-len", "16", "--device", "cpu"])
+    assert all(math.isfinite(own[k]) for k in ("ppl_fp32", "ppl_int8",
+                                               "ppl_approx"))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        t_mod["main"](["--registry", registry])
