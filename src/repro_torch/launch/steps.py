@@ -71,6 +71,20 @@ def loss_and_grads(params: M.Transformer, cfg: ModelConfig,
             T.map(lambda g: g / microbatches, grads))
 
 
+def update_params(params: M.Transformer, grads: Tree, opt_state: Tree,
+                  step, cfg: ModelConfig, opt_cfg: OptConfig) -> Tree:
+    """The step's optimizer half: ``optim.apply_gradients`` on the
+    reference's tree of ``params``, written back into ``params`` in place;
+    returns the new optimizer state."""
+    with torch.no_grad():
+        new, opt_state = apply_gradients(
+            C.reference_tree(params, cfg, leaf=lambda p: p.detach()),
+            grads, opt_state, step, opt_cfg)
+        del grads
+        C.load_reference_tree(params, new, cfg)
+    return opt_state
+
+
 def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig,
                     microbatches: int = 1):
     """(params, opt_state, batch, step) -> (params, opt_state, {"loss"}).
@@ -78,21 +92,15 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig,
     ``params`` is a ``Transformer`` (updated in place and returned),
     ``opt_state`` the reference's tree of ``optim.init_opt_state``,
     ``batch`` ``{"tokens", "targets"}`` (B, S) integer tensors, ``step``
-    the 0-based step number."""
-    if cfg.attn_impl == "pallas":
-        raise NotImplementedError(
-            "attn_impl='pallas' has no backward pass (the flash kernel is "
-            "forward-only, as in the reference): train with 'blocked'")
+    the 0-based step number.  Under ``attn_impl="pallas"`` the step
+    raises (``attention.run_attention``: the flash kernel has no backward
+    pass)."""
 
     def train_step(params, opt_state, batch, step):
         loss, grads = loss_and_grads(params, cfg, batch["tokens"],
                                      batch["targets"], microbatches)
-        with torch.no_grad():
-            new, opt_state = apply_gradients(
-                C.reference_tree(params, cfg, leaf=lambda p: p.detach()),
-                grads, opt_state, step, opt_cfg)
-            del grads
-            C.load_reference_tree(params, new, cfg)
+        opt_state = update_params(params, grads, opt_state, step, cfg,
+                                  opt_cfg)
         return params, opt_state, {"loss": loss}
 
     return train_step

@@ -55,17 +55,19 @@ def _repeat_kv(k: torch.Tensor, v: torch.Tensor, heads: int):
 
 
 def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                      causal: bool, block_q: int, block_kv: int
-                      ) -> torch.Tensor:
+                      causal: bool, block_q: int, block_kv: int,
+                      skip_masked: bool = True) -> torch.Tensor:
     """Online-softmax attention in float32, O(S·block) memory.
 
     q: (B, Sq, H, D); k/v: (B, Skv, Hkv, D), GQA by head repetition; q and
-    k start at position 0.  Under ``causal`` the key blocks wholly past a
-    query block's last position are skipped: there they would add exp(-1e30
-    - m) = 0 to every sum and scale it by exp(0) = 1 (key block 0 makes m
-    finite), so the result is the same, with less work (about half of it
-    at long sequences) and none of those blocks' scores kept for a
-    backward pass."""
+    k start at position 0.  Under ``causal`` and ``skip_masked`` the key
+    blocks wholly past a query block's last position are skipped: there
+    they would add exp(-1e30 - m) = 0 to every sum and scale it by exp(0) =
+    1 (key block 0 makes m finite), so the result and its gradients are
+    the same bit for bit as those of every block pair (``skip_masked=
+    False``, the reference's loop), with less work (about half of it at
+    long sequences) and none of those blocks' scores kept for a backward
+    pass."""
     B, Sq, H, D = q.shape
     Skv = k.shape[1]
     k, v = _repeat_kv(k, v, H)
@@ -93,7 +95,7 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         m = torch.full((B, H, bq), NEG_INF, dtype=torch.float32, device=dev)
         l = torch.zeros((B, H, bq), dtype=torch.float32, device=dev)
         for kj in range(nkv):
-            if causal and kj * bkv > (qi + 1) * bq - 1:
+            if skip_masked and causal and kj * bkv > (qi + 1) * bq - 1:
                 break
             s = torch.einsum("bqhd,bkhd->bhqk", q_i, kb[:, kj])
             mask = kv_valid[kj][None, None, None, :]

@@ -155,16 +155,21 @@ def test_train_default_device_raises_without_a_card(monkeypatch):
 
 def test_pallas_attention_raises_under_training():
     """Neither package can differentiate the flash kernel: training on
-    ``attn_impl="pallas"`` raises, at the step builder and at the
+    ``attn_impl="pallas"`` raises, in the train step and at the
     attention call, on any device."""
     import dataclasses
+    from repro_torch import convert
     from repro_torch.configs import llama3_2_1b
     from repro_torch.launch import steps
-    from repro_torch.models import attention
-    from repro_torch.optim import OptConfig
+    from repro_torch.models import attention, model
+    from repro_torch.optim import OptConfig, init_opt_state
     cfg = dataclasses.replace(llama3_2_1b.reduced(), attn_impl="pallas")
+    params = model.init_params(torch.Generator().manual_seed(0), cfg)
+    state = init_opt_state(convert.reference_tree(params, cfg), OptConfig())
+    toks = torch.zeros((1, 8), dtype=torch.int64)
     with pytest.raises(NotImplementedError, match="no backward"):
-        steps.make_train_step(cfg, OptConfig())
+        steps.make_train_step(cfg, OptConfig())(
+            params, state, {"tokens": toks, "targets": toks}, 0)
     q = torch.zeros((1, 8, 4, 8), requires_grad=True)
     k = torch.zeros((1, 8, 2, 8))
     with pytest.raises(NotImplementedError, match="no backward"):

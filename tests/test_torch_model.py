@@ -139,6 +139,25 @@ def test_self_attention_and_mlp(models, impl):
            JLay.mlp(jl["ffn"], jnp.asarray(x), jcfg))
 
 
+@pytest.mark.parametrize("B,S,H,Hkv,D,bq,bkv", [
+    (2, 40, 4, 2, 8, 8, 16), (1, 64, 2, 1, 4, 16, 8), (2, 33, 2, 2, 8, 8, 8),
+    (1, 20, 2, 2, 4, 32, 32)])
+def test_blocked_attention_skips_masked_blocks_exactly(B, S, H, Hkv, D, bq,
+                                                       bkv):
+    """Skipping the causally masked key blocks changes no bit of the
+    output or of its gradients against the loop over every block pair."""
+    gen = torch.Generator().manual_seed(0)
+    qkv = [torch.randn(shape, generator=gen, requires_grad=True)
+           for shape in ((B, S, H, D), (B, S, Hkv, D), (B, S, Hkv, D))]
+    outs, grads = [], []
+    for skip in (True, False):
+        out = TA.blocked_attention(*qkv, True, bq, bkv, skip_masked=skip)
+        outs.append(out)
+        grads.append(torch.autograd.grad((out * out).sum(), qkv))
+    assert torch.equal(outs[0], outs[1])
+    assert all(torch.equal(a, b) for a, b in zip(*grads))
+
+
 def test_decode_self_attention(models):
     jcfg, tcfg, jp, tp = models
     x = _x((B_, 1, 64), 4)
