@@ -1,12 +1,16 @@
-"""Model configuration of the port: the dense decoder-only path.
+"""Model configuration of the port: decoder-only stacks of attention, SSM,
+dense-FFN and MoE layers.
 
-The port's copy of the fields of ``repro.configs.base.ModelConfig`` that a
-dense GQA transformer with a SwiGLU MLP and a tied or untied output head
-reads (serving and training), with ``pdtype()`` / ``adtype()`` returning
-torch dtypes, and the reference's TRAIN_4K shape.  ``get_arch`` resolves an
+The port's copy of the fields of ``repro.configs.base.ModelConfig`` that
+these stacks read (serving and training): a repeating ``period`` of
+``LayerSpec``s, the ``SSMConfig`` and ``MoEConfig`` blocks, a tied or
+untied output head, with ``pdtype()`` / ``adtype()`` returning torch
+dtypes, and the reference's TRAIN_4K shape.  ``get_arch`` resolves an
 architecture id to its config module; of the reference's ten architectures
-the four dense ones are ported (``PORTED``), and the others raise, as do
-MoE, SSM, cross-attention and the audio / vision front ends.
+eight are ported (``PORTED``): the four dense ones, the MoE ``qwen3`` and
+``kimi``, the SSM ``mamba2`` and the hybrid ``jamba``.  The other two
+(``llama3_2_vision_11b``, ``musicgen_large``) raise, as do cross-attention
+and the audio / vision front ends (ROADMAP Queue A item 6).
 """
 from __future__ import annotations
 
@@ -22,12 +26,28 @@ class LayerSpec:
     kind: str = "attn"          # "attn" | "ssm"
     moe: bool = False           # FFN is a mixture-of-experts
     cross_attn: bool = False    # cross-attention to frontend embeddings
-    has_ffn: bool = True
+    has_ffn: bool = True        # mamba2-only stacks have no FFN
 
-    @property
-    def dense(self) -> bool:
-        return (self.kind == "attn" and not self.moe and not self.cross_attn
-                and self.has_ffn)
+
+@dataclasses.dataclass(frozen=True)
+class SSMConfig:
+    d_state: int = 128
+    expand: int = 2
+    headdim: int = 64
+    n_groups: int = 1
+    conv_width: int = 4
+    chunk: int = 128            # SSD chunk length
+    dt_min: float = 0.001
+    dt_max: float = 0.1
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int = 8
+    top_k: int = 2
+    d_ff_expert: int = 768
+    capacity_factor: float = 1.25
+    router_jitter: float = 0.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,6 +65,8 @@ class ModelConfig:
     norm_eps: float = 1e-5
     tie_embeddings: bool = True  # False: a separate (d_model, vocab) lm_head
     period: tuple[LayerSpec, ...] = (LayerSpec(),)
+    ssm: SSMConfig = SSMConfig()
+    moe: MoEConfig = MoEConfig()
     param_dtype: str = "float32"
     act_dtype: str = "float32"
     remat: bool = False         # recompute each layer in the backward pass
@@ -93,7 +115,9 @@ ARCH_IDS = (
     "llama3_2_1b", "qwen3_moe_30b_a3b", "kimi_k2_1t_a32b",
     "jamba_1_5_large_398b", "llama3_2_vision_11b", "musicgen_large",
 )
-PORTED = ("llama3_2_1b", "phi4_mini_3_8b", "stablelm_1_6b", "stablelm_12b")
+PORTED = ("llama3_2_1b", "phi4_mini_3_8b", "stablelm_1_6b", "stablelm_12b",
+          "qwen3_moe_30b_a3b", "kimi_k2_1t_a32b", "mamba2_1_3b",
+          "jamba_1_5_large_398b")
 
 
 def get_arch(arch_id: str):
@@ -103,6 +127,7 @@ def get_arch(arch_id: str):
         raise ValueError(f"unknown architecture {arch_id!r}")
     if arch_id not in PORTED:
         raise NotImplementedError(
-            f"architecture {arch_id!r} is not ported yet (ROADMAP A13); "
+            f"architecture {arch_id!r} is not ported yet (ROADMAP Queue A "
+            f"item 6: cross-attention and the front ends); "
             f"ported: {PORTED}")
     return importlib.import_module(f"repro_torch.configs.{arch_id}")

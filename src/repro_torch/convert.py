@@ -4,13 +4,13 @@ The system's "weights" are its genomes and evolution state, and the LM's
 parameters and optimizer state.  These helpers take arrays from the JAX
 package (anything ``numpy.asarray`` reads: genome arrays, a stacked
 ``EvolveState`` with its PRNG keys, threshold matrices, a model parameter
-tree, an optimizer state) and return the port's tensors on a given device,
-so both packages can be started from the same state; ``reference_params``
-and ``reference_opt_state`` go the other way, into the reference's trees
-of numpy arrays.  bfloat16 travels as numpy's 2-byte void records (the
-bytes of the bfloat16 value, what the reference's checkpoints hold), or as
-any array ``numpy.asarray`` widens exactly to float32.  Nothing here
-imports JAX.
+tree, a decode cache, an optimizer state) and return the port's tensors on
+a given device, so both packages can be started from the same state;
+``reference_params``, ``reference_cache`` and ``reference_opt_state`` go
+the other way, into the reference's trees of numpy arrays.  bfloat16
+travels as numpy's 2-byte void records (the bytes of the bfloat16 value,
+what the reference's checkpoints hold), or as any array ``numpy.asarray``
+widens exactly to float32.  Nothing here imports JAX.
 """
 from __future__ import annotations
 
@@ -23,6 +23,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.evolve import EvolveState
 from repro_torch.core.genome import Genome
 from repro_torch.models.model import Transformer, skeleton
+from repro_torch.models.ssm import SSMState
 
 
 def tensor(x, dtype: torch.dtype, device: torch.device | str = "cpu"
@@ -74,15 +75,30 @@ def to_tensor(x, dtype: torch.dtype, device: torch.device | str = "cpu"
     return torch.as_tensor(np.array(a), device=device).to(dtype)
 
 
+# each block's leaves in the reference's trees (``init_attention``,
+# ``init_ssm``, ``init_mlp``, ``init_moe``)
+_LEAVES = {
+    "attn": ("norm", "wk", "wo", "wq", "wv"),
+    "ssm": ("a_log", "conv_bc_w", "conv_x_w", "d_skip", "dt_bias",
+            "gate_norm", "norm", "w_bc", "w_dt", "w_out", "w_x", "w_z"),
+    "mlp": ("norm", "w_down", "w_gate", "w_up"),
+    "moe": ("norm", "router", "w_down", "w_gate", "w_up"),
+}
+
+
 def _layer_names(cfg: ModelConfig):
     """(port name, reference (period slot, stack index), part, leaf) of
     every per-layer parameter: layer ``i`` of the port is period ``i //
-    len(period)``, slot ``i % len(period)``."""
+    len(period)``, slot ``i % len(period)``; its mixer is an attention or
+    SSM block, its FFN (if it has one) a dense MLP or an MoE."""
     period = len(cfg.period)
     for i in range(cfg.n_layers):
-        for part, names in (("mixer", ("norm", "wk", "wo", "wq", "wv")),
-                            ("ffn", ("norm", "w_down", "w_gate", "w_up"))):
-            for name in names:
+        spec = cfg.period[i % period]
+        parts = [("mixer", "ssm" if spec.kind == "ssm" else "attn")]
+        if spec.has_ffn:
+            parts.append(("ffn", "moe" if spec.moe else "mlp"))
+        for part, block in parts:
+            for name in _LEAVES[block]:
                 yield (f"layers.{i}.{part}.{name}", f"layer{i % period}",
                        i // period, part, name)
 
@@ -151,6 +167,56 @@ def reference_params(params: Transformer, cfg: ModelConfig) -> dict:
     """``params`` as the reference's parameter tree of numpy arrays (the
     inverse of ``model_params``; bfloat16 leaves as 2-byte records)."""
     return T.map(to_host, reference_tree(params, cfg))
+
+
+def _leaf_tensor(x, device) -> torch.Tensor:
+    """A leaf as a tensor of its own dtype (bfloat16 from records or
+    ml_dtypes' bfloat16)."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().to(device)
+    a = np.asarray(x)
+    if a.dtype == BF16_RECORD or a.dtype.name == "bfloat16":
+        return to_tensor(a, torch.bfloat16, device)
+    return torch.as_tensor(np.array(a), device=device)
+
+
+def cache(tree, cfg: ModelConfig, device: torch.device | str = "cpu"
+          ) -> list:
+    """The reference's decode cache (``init_cache`` / ``prefill`` /
+    ``decode_step`` output: ``layer{j}`` of each period slot, every leaf
+    stacked over ``n_periods``; an ``SSMState`` for SSM slots, a ``{"k",
+    "v"}`` dict otherwise) as the port's per-layer list, each leaf in its
+    own dtype on ``device``."""
+    period = len(cfg.period)
+    out = []
+    for i in range(cfg.n_layers):
+        lc, idx = tree[f"layer{i % period}"], i // period
+        if cfg.period[i % period].kind == "ssm":
+            out.append(SSMState(*(_leaf_tensor(getattr(lc, f)[idx], device)
+                                  for f in SSMState._fields)))
+        else:
+            out.append({k: _leaf_tensor(lc[k][idx], device)
+                        for k in ("k", "v")})
+    return out
+
+
+def reference_cache(cache: list, cfg: ModelConfig) -> dict:
+    """The port's per-layer cache as the reference's tree of numpy arrays
+    (the inverse of ``cache``; ``SSMState``s as the port's named tuple,
+    which has the reference's fields)."""
+    period = len(cfg.period)
+    slots: dict = {}
+    for i, lc in enumerate(cache):
+        slots.setdefault(f"layer{i % period}", []).append(lc)
+    stack = lambda xs: to_host(torch.stack([x.detach() for x in xs]))
+    tree = {}
+    for slot, lcs in slots.items():
+        if isinstance(lcs[0], SSMState):
+            tree[slot] = SSMState(*(stack([getattr(c, f) for c in lcs])
+                                    for f in SSMState._fields))
+        else:
+            tree[slot] = {k: stack([c[k] for c in lcs]) for k in ("k", "v")}
+    return tree
 
 
 def opt_state(tree, device: torch.device | str = "cpu") -> dict:

@@ -17,6 +17,8 @@ unquantized model; ``--summary-out`` writes the report as JSON.  Runs on the
 card; ``--device cpu`` (with ``--reduced``) runs the plain PyTorch path.
 Prints the same lines as ``repro.launch.serve``.  Weights are random, drawn
 from a seeded ``torch.Generator`` with the reference's distributions.
+Every ported architecture serves: attention layers keep a KV cache, SSM
+layers an ``SSMState``, MoE layers decode at full capacity.
 """
 from __future__ import annotations
 

@@ -1,4 +1,5 @@
-"""Training launcher on the PyTorch port: dense-LM training on one device.
+"""Training launcher on the PyTorch port: LM training on one device (every
+ported architecture: dense, MoE with its aux loss, SSM, hybrid).
 
 Wires together the deterministic data pipeline, the optimizer, step
 checkpoints written in the background with auto-resume, the heartbeat /

@@ -9,7 +9,7 @@ every full-sequence pass — prefill, ``backbone``/``lm_loss`` — and raises
 under autograd (the kernel has no backward pass).  Decode uses
 a cache local to the device under every ``attn_impl``, as the reference
 does; the sequence-sharded cache of the reference waits for multi-GPU
-support (ROADMAP A11).
+support (ROADMAP Queue A item 7).
 """
 from __future__ import annotations
 

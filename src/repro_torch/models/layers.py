@@ -12,6 +12,7 @@ graph; the trainer turns gradients on for its own parameters
 """
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -42,6 +43,18 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float
     x = x.to(torch.float32)
     x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
     return (x * scale.to(torch.float32)).to(dt)
+
+
+@contextlib.contextmanager
+def ieee_fp32():
+    """float32 matmuls in full float32 on the card within the block (no
+    TF32), whatever the process has set; no effect on the CPU."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
 
 
 def matmul(x: torch.Tensor, w: torch.Tensor, cfg: ModelConfig

@@ -1,10 +1,17 @@
-"""The port's dense configurations against the JAX package's:
+"""The port's configurations against the JAX package's: the dense
 ``llama3_2_1b``, ``phi4_mini_3_8b``, ``stablelm_1_6b`` and ``stablelm_12b``
-(both stablelms with an untied ``lm_head``).  Each reduced configuration's
-forward on the reference's weights (``convert.model_params``) gives the
-reference's logits within the float32 tolerance of ``test_torch_model``,
-its greedy serve loop the reference's tokens, and one train step with its
-``OPTIMIZER`` the reference's loss, gradients, parameters and state.
+(both stablelms with an untied ``lm_head``), the MoE ``qwen3_moe_30b_a3b``
+and ``kimi_k2_1t_a32b``, the SSM ``mamba2_1_3b`` and the hybrid
+``jamba_1_5_large_398b``.  Each reduced configuration's forward on the
+reference's weights (``convert.model_params``) gives the reference's
+logits and aux loss within the float32 tolerance of ``test_torch_model``,
+its prefill and decode the reference's logits and caches (carried across
+by ``convert.cache``), its greedy serve loop the reference's tokens, its
+``quality_report`` the reference's perplexities, and one train step with
+its ``OPTIMIZER`` the reference's loss, gradients, parameters and state.
+Each full-size configuration's parameter count, on the ``meta`` device,
+is the reference's (``jax.eval_shape``), in ``tests/test_archs.py``'s
+ranges.
 
 Train-step tolerances (measured on the reduced configs on the CPU): the
 loss within LOSS_RTOL (<= 2.3e-7 relative seen); each gradient leaf within
@@ -44,11 +51,27 @@ from repro_torch.optim import OptConfig, init_opt_state
 torch.set_num_threads(1)
 
 RTOL, ATOL = 2e-5, 2e-6        # float32, another summation order
+# caches: the SSD scan's exp / cumsum / einsum orders (as
+# tests/test_torch_ssm.py), through up to 8 layers (jamba's period)
+CACHE_RTOL, CACHE_ATOL = 1e-4, 1e-5
 LOSS_RTOL = 1e-6
 GRAD_RTOL = 1e-5
 PARAM_RTOL = 5e-7
 TIE_FACTOR = 10.0
-ARCHS = ("llama3_2_1b", "phi4_mini_3_8b", "stablelm_1_6b", "stablelm_12b")
+ARCHS = ("llama3_2_1b", "phi4_mini_3_8b", "stablelm_1_6b", "stablelm_12b",
+         "qwen3_moe_30b_a3b", "kimi_k2_1t_a32b", "mamba2_1_3b",
+         "jamba_1_5_large_398b")
+NEW_ARCHS = ARCHS[4:]            # with MoE or SSM layers
+UNPORTED = ("llama3_2_vision_11b", "musicgen_large")
+# full-size parameter counts: tests/test_archs.py's ranges
+PARAM_RANGES = {"llama3_2_1b": (1.0e9, 1.8e9),
+                "phi4_mini_3_8b": (3.0e9, 4.6e9),
+                "stablelm_1_6b": (1.2e9, 2.1e9),
+                "stablelm_12b": (10e9, 14e9),
+                "qwen3_moe_30b_a3b": (25e9, 34e9),
+                "kimi_k2_1t_a32b": (0.9e12, 1.15e12),
+                "jamba_1_5_large_398b": (330e9, 430e9),
+                "mamba2_1_3b": (1.0e9, 1.6e9)}
 FIELDS = ("name", "family", "n_layers", "d_model", "n_heads", "n_kv_heads",
           "head_dim", "d_ff", "vocab", "rope_theta", "norm_eps",
           "tie_embeddings", "param_dtype", "act_dtype", "remat",
@@ -67,14 +90,17 @@ def test_configs_are_the_references(arch):
         assert [(s.kind, s.moe, s.cross_attn, s.has_ffn) for s in tc.period
                 ] == [(s.kind, s.moe, s.cross_attn, s.has_ffn)
                       for s in jc.period]
+        assert dataclasses.asdict(tc.moe) == dataclasses.asdict(jc.moe)
+        assert dataclasses.asdict(tc.ssm) == dataclasses.asdict(jc.ssm)
         assert jc.act == "swiglu" and jc.frontend == "none"
         assert str(tc.pdtype()).split(".")[-1] == jc.param_dtype
 
 
 def test_ported_and_unported_architectures():
     assert set(TB.PORTED) == set(ARCHS)
-    for arch in set(TB.ARCH_IDS) - set(ARCHS):
-        with pytest.raises(NotImplementedError):
+    assert set(TB.ARCH_IDS) - set(ARCHS) == set(UNPORTED)
+    for arch in UNPORTED:
+        with pytest.raises(NotImplementedError, match="item 6"):
             TB.get_arch(arch)
     assert TB.TRAIN_4K == TB.ShapeConfig(
         JB.TRAIN_4K.name, JB.TRAIN_4K.seq_len, JB.TRAIN_4K.global_batch,
@@ -95,12 +121,14 @@ def test_reduced_forward_matches_reference(arch):
     assert ("lm_head" in jp) == (not tcfg.tie_embeddings)
     toks = np.random.default_rng(1).integers(0, jcfg.vocab, (2, 24),
                                              dtype=np.int32)
-    want, _ = JM.forward_train(jp, jnp.asarray(toks), jcfg)
+    want, jaux = JM.forward_train(jp, jnp.asarray(toks), jcfg)
     with torch.no_grad():
-        got = TM.forward_train(tp, torch.as_tensor(toks, dtype=torch.int64),
-                               tcfg)
+        got, taux = TM.forward_train(
+            tp, torch.as_tensor(toks, dtype=torch.int64), tcfg)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL,
                                atol=ATOL)
+    assert float(taux) == pytest.approx(float(jaux), rel=1e-6)
+    assert (float(taux) > 0) == any(s.moe for s in tcfg.period)
     wl = float(JM.lm_loss(jp, jnp.asarray(toks), jnp.asarray(toks), jcfg))
     with torch.no_grad():
         tl = float(TM.lm_loss(tp, torch.as_tensor(toks, dtype=torch.int64),
@@ -123,6 +151,100 @@ def test_reduced_serve_matches_reference(arch):
     got = t_serve._serve_loop(tcfg, tp, n_req, prompt, gen, slots, 0, "cpu")
     assert got["decoded_tokens"] == want["decoded_tokens"] == n_req * gen
     assert got["outputs"] == {k: list(v) for k, v in want["outputs"].items()}
+
+
+def _close_trees(got, want):
+    g, w = jax.tree.leaves(got), jax.tree.leaves(want)
+    assert len(g) == len(w)
+    for a, b in zip(g, w):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        np.testing.assert_allclose(np.asarray(a, np.float32),
+                                   np.asarray(b, np.float32),
+                                   rtol=CACHE_RTOL, atol=CACHE_ATOL)
+
+
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_reduced_prefill_decode_and_caches(arch):
+    """Prefill and three decode steps: the reference's logits, and its
+    caches (KV dicts and SSM states) carried across both ways by
+    ``convert.cache`` / ``convert.reference_cache``."""
+    jcfg, tcfg, jp, tp = _models(arch)
+    toks = np.random.default_rng(2).integers(0, jcfg.vocab, (2, 12),
+                                             dtype=np.int32)
+    jl, jc = JM.prefill(jp, jnp.asarray(toks), jcfg, max_len=16)
+    tl, tc = TM.prefill(tp, torch.as_tensor(toks, dtype=torch.int64), tcfg,
+                        max_len=16)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=RTOL,
+                               atol=ATOL)
+    kinds = {type(c).__name__ for c in tc}
+    assert kinds == ({"SSMState"} if arch == "mamba2_1_3b" else {"dict"}
+                     if "ssm" not in {s.kind for s in tcfg.period}
+                     else {"SSMState", "dict"})
+    _close_trees(C.reference_cache(tc, tcfg), jc)
+    # decode from the reference's cache, carried across
+    pc = C.cache(jc, tcfg)
+    pos = np.full((2,), 12, np.int32)
+    tok = np.asarray(jnp.argmax(jl[:, -1], axis=-1))[:, None]
+    for _ in range(3):
+        jl, jc = JM.decode_step(jp, jc, jnp.asarray(tok), jnp.asarray(pos),
+                                jcfg)
+        tl, pc = TM.decode_step(tp, pc, torch.tensor(tok).long(),
+                                torch.tensor(pos).long(), tcfg)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=RTOL,
+                                   atol=ATOL)
+        tok = np.asarray(jnp.argmax(jl[:, -1], axis=-1))[:, None]
+        pos = pos + 1
+    _close_trees(C.reference_cache(pc, tcfg), jc)
+
+
+def _lut():
+    rng = np.random.default_rng(1)
+    exact = np.arange(256)[:, None] * np.arange(256)[None, :]
+    return np.clip(exact + rng.integers(-40, 41, exact.shape),
+                   0, 65535).astype(np.int32)
+
+
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_reduced_quality_report_matches_reference(arch):
+    """``quality_report`` on an approximate table (attention and SSM
+    projections through it, the experts exact, as in the reference): the
+    reference's perplexities within rtol 1e-4, as for llama
+    (``test_torch_serve``)."""
+    _, tcfg, _, tp = _models(arch)
+    lut = _lut()
+    want = j_serve.quality_report(arch, lut, seq_len=16)
+    toks = jax.random.randint(jax.random.PRNGKey(0), (4, 16), 0, tcfg.vocab)
+    got = t_serve.quality_report(
+        arch, lut, device="cpu", params=tp,
+        tokens=torch.as_tensor(np.array(toks), dtype=torch.int64))
+    for k in ("ppl_fp32", "ppl_int8", "ppl_approx"):
+        assert np.isfinite(got[k])
+        assert got[k] == pytest.approx(want[k], rel=1e-4), k
+    for k in ("logit_mae_vs_fp32", "logit_mae_vs_int8"):
+        assert got[k] == pytest.approx(want[k], rel=1e-3), k
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_full_size_shapes_without_allocation(arch):
+    """The full-size ``skeleton`` on the ``meta`` device: every leaf's
+    shape and dtype the reference's (``jax.eval_shape`` of its
+    ``init_params``), and the parameter count in ``tests/test_archs.py``'s
+    range."""
+    tcfg = TB.get_arch(arch).CONFIG
+    jcfg = JB.get_arch(arch).CONFIG
+    sk = TM.skeleton(tcfg, "meta")
+    ref = jax.eval_shape(lambda k: JM.init_params(k, jcfg),
+                         jax.random.PRNGKey(0))
+    own = dict(sk.named_parameters())
+    assert all(p.device.type == "meta" for p in own.values())
+    for name, slot, _, part, key in C._layer_names(tcfg):
+        leaf = ref["layers"][slot][part][key]
+        assert tuple(leaf.shape[1:]) == tuple(own[name].shape), name
+        assert str(leaf.dtype) == str(own[name].dtype).split(".")[-1], name
+    n = sum(p.numel() for p in own.values())
+    assert n == sum(int(np.prod(x.shape)) for x in jax.tree.leaves(ref))
+    lo, hi = PARAM_RANGES[arch]
+    assert lo <= n <= hi, (arch, f"{n:.3e}")
 
 
 @pytest.mark.parametrize("arch", ["stablelm_1_6b", "stablelm_12b"])

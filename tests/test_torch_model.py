@@ -243,12 +243,15 @@ def test_init_params_distributions():
 
 
 def test_other_architectures_raise():
-    with pytest.raises(NotImplementedError, match="A13"):
-        B.get_arch("qwen3_moe_30b_a3b")
+    for arch in ("llama3_2_vision_11b", "musicgen_large"):
+        with pytest.raises(NotImplementedError, match="item 6"):
+            B.get_arch(arch)
     cfg = dataclasses.replace(TL.reduced(),
-                              period=(B.LayerSpec(kind="ssm"),))
-    with pytest.raises(NotImplementedError, match="A13"):
-        TM.init_params(torch.Generator(), cfg)
+                              period=(B.LayerSpec(cross_attn=True),))
+    for build in (lambda: TM.init_params(torch.Generator(), cfg),
+                  lambda: TM.skeleton(cfg, "meta")):
+        with pytest.raises(NotImplementedError, match="item 6"):
+            build()
 
 
 @pytest.mark.parametrize("shape", [(B_ * S_, 64), (3, 5, 64)])
