@@ -1,16 +1,15 @@
-"""Model configuration of the port: decoder-only stacks of attention, SSM,
-dense-FFN and MoE layers.
+"""Model configuration of the port: decoder-only stacks of attention,
+cross-attention, SSM, dense-FFN and MoE layers.
 
 The port's copy of the fields of ``repro.configs.base.ModelConfig`` that
 these stacks read (serving and training): a repeating ``period`` of
-``LayerSpec``s, the ``SSMConfig`` and ``MoEConfig`` blocks, a tied or
-untied output head, with ``pdtype()`` / ``adtype()`` returning torch
-dtypes, and the reference's TRAIN_4K shape.  ``get_arch`` resolves an
-architecture id to its config module; of the reference's ten architectures
-eight are ported (``PORTED``): the four dense ones, the MoE ``qwen3`` and
-``kimi``, the SSM ``mamba2`` and the hybrid ``jamba``.  The other two
-(``llama3_2_vision_11b``, ``musicgen_large``) raise, as do cross-attention
-and the audio / vision front ends (ROADMAP Queue A item 6).
+``LayerSpec``s, the ``SSMConfig`` and ``MoEConfig`` blocks, the MLP's
+activation, the front-end stub (``"vision"``: ``n_img_tokens`` image
+embeddings for the cross-attention layers; ``"audio"``: ``n_codebooks``
+parallel token streams), a tied or untied output head, with ``pdtype()`` /
+``adtype()`` returning torch dtypes; the reference's four shape cells and
+``input_specs``.  ``get_arch`` resolves an architecture id to its config
+module; all ten of the reference's architectures are ported (``PORTED``).
 """
 from __future__ import annotations
 
@@ -63,10 +62,17 @@ class ModelConfig:
     vocab: int = 1024
     rope_theta: float = 10000.0
     norm_eps: float = 1e-5
+    act: str = "swiglu"         # dense MLP: "swiglu" | "gelu" (tanh form)
     tie_embeddings: bool = True  # False: a separate (d_model, vocab) lm_head
     period: tuple[LayerSpec, ...] = (LayerSpec(),)
     ssm: SSMConfig = SSMConfig()
     moe: MoEConfig = MoEConfig()
+    # front-end stubs: "vision" takes (B, n_img_tokens, d_model) image
+    # embeddings for the cross-attention layers; "audio" takes (B, S,
+    # n_codebooks) tokens and predicts every codebook
+    frontend: str = "none"      # "none" | "vision" | "audio"
+    n_img_tokens: int = 0
+    n_codebooks: int = 0
     param_dtype: str = "float32"
     act_dtype: str = "float32"
     remat: bool = False         # recompute each layer in the backward pass
@@ -109,25 +115,64 @@ class ShapeConfig:
 
 
 TRAIN_4K = ShapeConfig("train_4k", 4096, 256, "train")
+PREFILL_32K = ShapeConfig("prefill_32k", 32768, 32, "prefill")
+DECODE_32K = ShapeConfig("decode_32k", 32768, 128, "decode")
+LONG_500K = ShapeConfig("long_500k", 524288, 1, "decode")
+ALL_SHAPES = (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)
 
 ARCH_IDS = (
     "mamba2_1_3b", "phi4_mini_3_8b", "stablelm_1_6b", "stablelm_12b",
     "llama3_2_1b", "qwen3_moe_30b_a3b", "kimi_k2_1t_a32b",
     "jamba_1_5_large_398b", "llama3_2_vision_11b", "musicgen_large",
 )
-PORTED = ("llama3_2_1b", "phi4_mini_3_8b", "stablelm_1_6b", "stablelm_12b",
-          "qwen3_moe_30b_a3b", "kimi_k2_1t_a32b", "mamba2_1_3b",
-          "jamba_1_5_large_398b")
+PORTED = ARCH_IDS
+# pure full-attention architectures skip long_500k (it needs a
+# sub-quadratic mixer)
+SUBQUADRATIC = ("mamba2_1_3b", "jamba_1_5_large_398b")
 
 
 def get_arch(arch_id: str):
-    """The config module of ``arch_id`` (``CONFIG`` and ``reduced()``)."""
+    """The config module of ``arch_id`` (``CONFIG``, ``reduced()`` and
+    ``OPTIMIZER``)."""
     arch_id = arch_id.replace("-", "_").replace(".", "_")
     if arch_id not in ARCH_IDS:
         raise ValueError(f"unknown architecture {arch_id!r}")
-    if arch_id not in PORTED:
-        raise NotImplementedError(
-            f"architecture {arch_id!r} is not ported yet (ROADMAP Queue A "
-            f"item 6: cross-attention and the front ends); "
-            f"ported: {PORTED}")
     return importlib.import_module(f"repro_torch.configs.{arch_id}")
+
+
+def shapes_for(arch_id: str) -> tuple[ShapeConfig, ...]:
+    """The shape cells of ``arch_id``: all four for the sub-quadratic
+    architectures, the others without long_500k."""
+    if arch_id in SUBQUADRATIC:
+        return ALL_SHAPES
+    return tuple(s for s in ALL_SHAPES if s is not LONG_500K)
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig,
+                batch_override: int | None = None
+                ) -> dict[str, tuple[tuple[int, ...], torch.dtype]]:
+    """Every model input of this cell as a ``(shape, dtype)`` pair, the
+    shape and dtype of the reference's ``ShapeDtypeStruct``; allocates
+    nothing.  Tokens (and targets, and decode's ``pos``) are int32, with a
+    trailing codebook axis for the audio front end; the vision front end
+    adds ``image_embeds`` (B, n_img_tokens, d_model) in the activation
+    dtype."""
+    B = batch_override if batch_override is not None else shape.global_batch
+    i32 = torch.int32
+
+    def tokens(bs: int, sl: int):
+        if cfg.frontend == "audio":
+            return (bs, sl, cfg.n_codebooks), i32
+        return (bs, sl), i32
+
+    if shape.mode == "train":
+        specs = {"tokens": tokens(B, shape.seq_len),
+                 "targets": tokens(B, shape.seq_len)}
+    elif shape.mode == "prefill":
+        specs = {"tokens": tokens(B, shape.seq_len)}
+    else:                       # decode: one new token against a cache of S
+        specs = {"tokens": tokens(B, 1), "pos": ((B,), i32)}
+    if cfg.frontend == "vision":
+        specs["image_embeds"] = ((B, cfg.n_img_tokens, cfg.d_model),
+                                 cfg.adtype())
+    return specs

@@ -75,13 +75,16 @@ def to_tensor(x, dtype: torch.dtype, device: torch.device | str = "cpu"
     return torch.as_tensor(np.array(a), device=device).to(dtype)
 
 
-# each block's leaves in the reference's trees (``init_attention``,
-# ``init_ssm``, ``init_mlp``, ``init_moe``)
+# each block's leaves in the reference's trees (``init_attention``, with
+# ``cross=True`` for "cross", ``init_ssm``, ``init_mlp`` (with
+# ``act="gelu"`` for "gelu": no w_gate), ``init_moe``)
 _LEAVES = {
     "attn": ("norm", "wk", "wo", "wq", "wv"),
+    "cross": ("gate", "norm", "wk", "wo", "wq", "wv"),
     "ssm": ("a_log", "conv_bc_w", "conv_x_w", "d_skip", "dt_bias",
             "gate_norm", "norm", "w_bc", "w_dt", "w_out", "w_x", "w_z"),
     "mlp": ("norm", "w_down", "w_gate", "w_up"),
+    "gelu": ("norm", "w_down", "w_up"),
     "moe": ("norm", "router", "w_down", "w_gate", "w_up"),
 }
 
@@ -89,14 +92,19 @@ _LEAVES = {
 def _layer_names(cfg: ModelConfig):
     """(port name, reference (period slot, stack index), part, leaf) of
     every per-layer parameter: layer ``i`` of the port is period ``i //
-    len(period)``, slot ``i % len(period)``; its mixer is an attention or
-    SSM block, its FFN (if it has one) a dense MLP or an MoE."""
+    len(period)``, slot ``i % len(period)``; its mixer is an attention,
+    cross-attention or SSM block, its FFN (if it has one) a dense MLP or an
+    MoE.  A cross layer's scalar ``gate`` is stacked to (n_periods,) in the
+    reference's tree, like every other leaf."""
     period = len(cfg.period)
     for i in range(cfg.n_layers):
         spec = cfg.period[i % period]
-        parts = [("mixer", "ssm" if spec.kind == "ssm" else "attn")]
+        mixer = ("ssm" if spec.kind == "ssm" else
+                 "cross" if spec.cross_attn else "attn")
+        parts = [("mixer", mixer)]
         if spec.has_ffn:
-            parts.append(("ffn", "moe" if spec.moe else "mlp"))
+            parts.append(("ffn", "moe" if spec.moe else
+                          "mlp" if cfg.act == "swiglu" else "gelu"))
         for part, block in parts:
             for name in _LEAVES[block]:
                 yield (f"layers.{i}.{part}.{name}", f"layer{i % period}",
@@ -107,7 +115,8 @@ def reference_tree(params: Transformer, cfg: ModelConfig,
                    leaf=lambda p: p) -> dict:
     """``leaf`` of every parameter (the parameter itself by default, or
     its gradient) in the reference's tree: ``embed.tokens``,
-    ``final_norm``, ``lm_head`` when untied, and ``layers.layer{j}`` with
+    ``final_norm``, ``lm_head`` when untied (or audio), and
+    ``layers.layer{j}`` with
     each leaf stacked over ``n_periods`` (a new tensor on the parameters'
     device)."""
     own = dict(params.named_parameters())
@@ -118,7 +127,7 @@ def reference_tree(params: Transformer, cfg: ModelConfig,
     tree = {"embed": {"tokens": leaf(own["embed.tokens"])},
             "final_norm": leaf(own["final_norm"]),
             "layers": T.map(torch.stack, slots)}
-    if not cfg.tie_embeddings:
+    if "lm_head" in own:
         tree["lm_head"] = leaf(own["lm_head"])
     return tree
 
@@ -156,8 +165,9 @@ def model_params(tree, cfg: ModelConfig, device: torch.device | str = "cpu"
     """The reference's parameter tree as the port's ``Transformer``.
 
     ``tree`` is ``repro.models.model.init_params``'s output (or
-    ``reference_params``'): ``embed.tokens``, ``final_norm``, ``lm_head``
-    when the head is untied, and ``layers.layer{j}`` with every leaf
+    ``reference_params``'): ``embed.tokens`` ((C, V, D) for audio),
+    ``final_norm``, ``lm_head`` when the head is untied ((C, D, V) for
+    audio), and ``layers.layer{j}`` with every leaf
     stacked over ``n_periods``.  Values arrive unchanged (bfloat16 through
     float32 or as its bits)."""
     return load_reference_tree(skeleton(cfg, device), tree, cfg)
@@ -185,8 +195,9 @@ def cache(tree, cfg: ModelConfig, device: torch.device | str = "cpu"
     """The reference's decode cache (``init_cache`` / ``prefill`` /
     ``decode_step`` output: ``layer{j}`` of each period slot, every leaf
     stacked over ``n_periods``; an ``SSMState`` for SSM slots, a ``{"k",
-    "v"}`` dict otherwise) as the port's per-layer list, each leaf in its
-    own dtype on ``device``."""
+    "v"}`` dict otherwise, (B, n_img_tokens, Hkv, hd) for cross slots) as
+    the port's per-layer list, each leaf in its own dtype on
+    ``device``."""
     period = len(cfg.period)
     out = []
     for i in range(cfg.n_layers):

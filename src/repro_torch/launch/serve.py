@@ -17,8 +17,12 @@ unquantized model; ``--summary-out`` writes the report as JSON.  Runs on the
 card; ``--device cpu`` (with ``--reduced``) runs the plain PyTorch path.
 Prints the same lines as ``repro.launch.serve``.  Weights are random, drawn
 from a seeded ``torch.Generator`` with the reference's distributions.
-Every ported architecture serves: attention layers keep a KV cache, SSM
-layers an ``SSMState``, MoE layers decode at full capacity.
+Every architecture serves: attention layers keep a KV cache, SSM layers
+an ``SSMState``, MoE layers decode at full capacity, cross-attention
+layers attend to the vision stub's image embeddings (zeros unless the
+caller gives its own); audio prompts are (prompt_len, n_codebooks) and a
+decode step feeds every codebook's argmax back and records codebook 0's,
+as the reference does.
 """
 from __future__ import annotations
 
@@ -38,7 +42,7 @@ from repro_torch.models import quant
 @dataclasses.dataclass
 class Request:
     rid: int
-    prompt: np.ndarray            # (S,) token ids
+    prompt: np.ndarray            # (S,) or (S, C) token ids
     max_new: int
     out: list = dataclasses.field(default_factory=list)
     done: bool = False
@@ -58,13 +62,16 @@ def serve(arch: str, n_requests: int = 8, prompt_len: int = 32,
           gen_len: int = 16, slots: int = 4, reduced: bool = True,
           seed: int = 0, approx_lut: np.ndarray | None = None,
           device: torch.device | str | None = None,
-          params: M.Transformer | None = None) -> dict:
+          params: M.Transformer | None = None,
+          image_embeds: torch.Tensor | None = None) -> dict:
     """Run the continuous-batching loop; returns throughput and outputs.
 
     ``approx_lut`` (a 256×256 integer product table) routes every
     projection matmul through the emulated approximate multiplier for the
     whole run; the previously installed table is restored on exit.
-    ``params`` defaults to random weights drawn from ``seed``.
+    ``params`` defaults to random weights drawn from ``seed``;
+    ``image_embeds`` (vision: (slots, n_img_tokens, d_model), attended by
+    every slot batch) to the reference's stub, zeros.
     """
     dev = resolve_device(device)
     cfg = _config(arch, reduced)
@@ -81,7 +88,7 @@ def serve(arch: str, n_requests: int = 8, prompt_len: int = 32,
         if params is None:
             params = _random_params(cfg, seed, dev)
         return _serve_loop(cfg, params, n_requests, prompt_len, gen_len,
-                           slots, seed, dev)
+                           slots, seed, dev, image_embeds)
     finally:
         quant.set_multiplier_lut(prev_lut)
 
@@ -89,15 +96,18 @@ def serve(arch: str, n_requests: int = 8, prompt_len: int = 32,
 @torch.inference_mode()
 def _serve_loop(cfg: B.ModelConfig, params: M.Transformer, n_requests: int,
                 prompt_len: int, gen_len: int, slots: int, seed: int,
-                device) -> dict:
+                device, image_embeds: torch.Tensor | None = None) -> dict:
     rng = np.random.default_rng(seed)
     max_len = prompt_len + gen_len
-    reqs = [Request(i, rng.integers(0, cfg.vocab, (prompt_len,),
+    tok_shape = ((prompt_len, cfg.n_codebooks) if cfg.frontend == "audio"
+                 else (prompt_len,))
+    reqs = [Request(i, rng.integers(0, cfg.vocab, tok_shape,
                                     dtype=np.int32), gen_len)
             for i in range(n_requests)]
     pending = list(reqs)
     t0 = time.time()
     decoded_tokens = 0
+    img = _image_embeds(cfg, slots, device, image_embeds)
 
     while pending or any(not r.done for r in reqs):
         batch_reqs = pending[:slots]
@@ -108,18 +118,20 @@ def _serve_loop(cfg: B.ModelConfig, params: M.Transformer, n_requests: int,
             batch_reqs.append(batch_reqs[-1])
         prompts = torch.as_tensor(np.stack([r.prompt for r in batch_reqs]),
                                   dtype=torch.int64, device=device)
-        logits, cache = M.prefill(params, prompts, cfg, max_len=max_len)
+        logits, cache = M.prefill(params, prompts, cfg, max_len=max_len,
+                                  image_embeds=img)
         pos = torch.full((slots,), prompt_len, dtype=torch.int64,
                          device=device)
+        # (slots,), or (slots, C) for audio: every codebook is fed back
         next_tok = torch.argmax(logits[:, -1], dim=-1)
         for _ in range(gen_len):
             logits, cache = M.decode_step(params, cache, next_tok[:, None],
                                           pos, cfg)
             next_tok = torch.argmax(logits[:, -1], dim=-1)
-            next_np = next_tok.cpu().numpy()
+            next_np = next_tok.cpu().numpy().reshape(slots, -1)
             for i, r in enumerate(batch_reqs):
                 if not r.done and len(r.out) < r.max_new:
-                    r.out.append(int(next_np[i]))
+                    r.out.append(int(next_np[i, 0]))   # codebook 0
                     decoded_tokens += 1
                 if len(r.out) >= r.max_new:
                     r.done = True
@@ -131,19 +143,34 @@ def _serve_loop(cfg: B.ModelConfig, params: M.Transformer, n_requests: int,
             "outputs": {r.rid: r.out for r in reqs}}
 
 
+def _image_embeds(cfg: B.ModelConfig, batch: int, device,
+                  given: torch.Tensor | None) -> torch.Tensor | None:
+    """The vision front end's embeddings: ``given``, or the reference's
+    stub, zeros (batch, n_img_tokens, d_model) in the activation dtype;
+    None without a vision front end."""
+    if cfg.frontend != "vision":
+        return None
+    if given is not None:
+        return given.to(device=device, dtype=cfg.adtype())
+    return torch.zeros((batch, cfg.n_img_tokens, cfg.d_model),
+                       dtype=cfg.adtype(), device=device)
+
+
 @torch.inference_mode()
 def quality_report(arch: str, lut: np.ndarray, *, reduced: bool = True,
                    batch: int = 4, seq_len: int = 32, seed: int = 0,
                    device: torch.device | str | None = None,
                    params: M.Transformer | None = None,
-                   tokens: torch.Tensor | None = None) -> dict:
+                   tokens: torch.Tensor | None = None,
+                   image_embeds: torch.Tensor | None = None) -> dict:
     """Model-level damage of serving on the evolved multiplier.
 
     Evaluates the same parameters and token batch under three arithmetics —
     unquantized, exact int8 (quantization alone) and the approximate LUT —
     and reports perplexities, their deltas, and the mean |Δlogit| of the
     prefill logits against each baseline.  ``params`` and ``tokens``
-    default to draws from ``seed``.
+    ((batch, seq_len), audio (batch, seq_len, C)) default to draws from
+    ``seed``, ``image_embeds`` (vision) to the stub's zeros.
     """
     dev = resolve_device(device)
     cfg = _config(arch, reduced)
@@ -152,15 +179,19 @@ def quality_report(arch: str, lut: np.ndarray, *, reduced: bool = True,
         params = _random_params(cfg, seed, dev)
     if tokens is None:
         gen = torch.Generator(device=dev).manual_seed(seed)
-        tokens = torch.randint(0, cfg.vocab, (batch, seq_len), generator=gen,
+        shape = ((batch, seq_len, cfg.n_codebooks)
+                 if cfg.frontend == "audio" else (batch, seq_len))
+        tokens = torch.randint(0, cfg.vocab, shape, generator=gen,
                                device=dev)
     tokens = tokens.to(dev)
+    img = _image_embeds(cfg, tokens.shape[0], dev, image_embeds)
 
     prev_lut = quant._LUT
     try:
         def run(c):
-            loss = float(M.lm_loss(params, tokens, tokens, c))
-            logits, _ = M.prefill(params, tokens, c)
+            loss = float(M.lm_loss(params, tokens, tokens, c,
+                                   image_embeds=img))
+            logits, _ = M.prefill(params, tokens, c, image_embeds=img)
             return loss, logits.to(torch.float32).cpu().numpy()
 
         loss_fp, logits_fp = run(cfg)

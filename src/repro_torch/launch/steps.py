@@ -44,14 +44,19 @@ def _take_grads(params: M.Transformer, cfg: ModelConfig) -> Tree:
 
 def loss_and_grads(params: M.Transformer, cfg: ModelConfig,
                    tokens: torch.Tensor, targets: torch.Tensor,
-                   microbatches: int = 1) -> tuple[torch.Tensor, Tree]:
+                   microbatches: int = 1,
+                   image_embeds: torch.Tensor | None = None
+                   ) -> tuple[torch.Tensor, Tree]:
     """(mean loss, gradients in the reference's tree).  ``microbatches`` >
     1 splits the batch into that many consecutive row slices and
     accumulates float32 gradients and the loss over them, then divides, as
-    the reference's ``lax.scan`` does."""
+    the reference's ``lax.scan`` does.  ``image_embeds`` (vision) go whole
+    to every slice, as in the reference: there a slice of ``mb`` rows
+    reshapes the whole batch's K/V to ``mb`` rows, each attending to
+    ``microbatches`` images (``attention.cross_attention``)."""
     trainable(params)
     if microbatches == 1:
-        loss = M.lm_loss(params, tokens, targets, cfg)
+        loss = M.lm_loss(params, tokens, targets, cfg, image_embeds)
         loss.backward()
         return loss.detach(), _take_grads(params, cfg)
     mb = tokens.shape[0] // microbatches
@@ -59,7 +64,8 @@ def loss_and_grads(params: M.Transformer, cfg: ModelConfig,
     grads = None
     for k in range(microbatches):
         rows = slice(k * mb, (k + 1) * mb)
-        part = M.lm_loss(params, tokens[rows], targets[rows], cfg)
+        part = M.lm_loss(params, tokens[rows], targets[rows], cfg,
+                         image_embeds)
         part.backward()
         g = _take_grads(params, cfg)
         if grads is None:
@@ -91,14 +97,16 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig,
 
     ``params`` is a ``Transformer`` (updated in place and returned),
     ``opt_state`` the reference's tree of ``optim.init_opt_state``,
-    ``batch`` ``{"tokens", "targets"}`` (B, S) integer tensors, ``step``
+    ``batch`` ``{"tokens", "targets"}`` (B, S) integer tensors ((B, S, C)
+    for audio; vision adds ``"image_embeds"``), ``step``
     the 0-based step number.  Under ``attn_impl="pallas"`` the step
     raises (``attention.run_attention``: the flash kernel has no backward
     pass)."""
 
     def train_step(params, opt_state, batch, step):
         loss, grads = loss_and_grads(params, cfg, batch["tokens"],
-                                     batch["targets"], microbatches)
+                                     batch["targets"], microbatches,
+                                     batch.get("image_embeds"))
         opt_state = update_params(params, grads, opt_state, step, cfg,
                                   opt_cfg)
         return params, opt_state, {"loss": loss}
@@ -108,7 +116,8 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig,
 
 def make_prefill_step(cfg: ModelConfig):
     def prefill_step(params, batch):
-        return M.prefill(params, batch["tokens"], cfg)
+        return M.prefill(params, batch["tokens"], cfg,
+                         image_embeds=batch.get("image_embeds"))
     return prefill_step
 
 

@@ -1,5 +1,6 @@
 """Training launcher on the PyTorch port: LM training on one device (every
-ported architecture: dense, MoE with its aux loss, SSM, hybrid).
+architecture: dense, MoE with its aux loss, SSM, hybrid, and the vision
+and audio front ends' stubs).
 
 Wires together the deterministic data pipeline, the optimizer, step
 checkpoints written in the background with auto-resume, the heartbeat /
@@ -75,7 +76,7 @@ def train(arch: str, steps: int = 50, batch: int | None = None,
     batch = batch or (8 if reduced else B.TRAIN_4K.global_batch)
     seq = seq or (64 if reduced else B.TRAIN_4K.seq_len)
     dcfg = DataConfig(vocab=cfg.vocab, seq_len=seq, global_batch=batch,
-                      seed=seed)
+                      seed=seed, n_codebooks=cfg.n_codebooks)
 
     if params is None:
         params = M.init_params(
@@ -96,6 +97,10 @@ def train(arch: str, steps: int = 50, batch: int | None = None,
             start_step = latest
             print(f"[train] resumed from step {latest}", flush=True)
 
+    img = None
+    if cfg.frontend == "vision":        # the stub's image embeddings
+        img = torch.zeros((batch, cfg.n_img_tokens, cfg.d_model),
+                          dtype=cfg.adtype(), device=dev)
     guard = TrainGuard(HeartbeatMonitor(deadline_s=300.0),
                        StragglerDetector())
     host = f"host{_rank()}"
@@ -106,6 +111,8 @@ def train(arch: str, steps: int = 50, batch: int | None = None,
         t0 = time.time()
         tb = {k: torch.as_tensor(v, dtype=torch.int64, device=dev)
               for k, v in synth_batch(dcfg, s).items()}
+        if img is not None:
+            tb["image_embeds"] = img
         t1 = time.time()
         params, opt_state, metrics = step_fn(params, opt_state, tb, s)
         loss = float(metrics["loss"])

@@ -1,15 +1,20 @@
-"""GQA self-attention: blocked online-softmax over a sequence, and one-token
-decode against a KV cache.
+"""GQA self-attention (blocked online-softmax over a sequence, and one-token
+decode against a KV cache) and gated cross-attention to front-end
+embeddings.
 
-The port of ``repro/models/attention.py``'s dense path.  ``"blocked"`` (the
-default) and ``"naive"`` are plain tensor code; ``attn_impl="pallas"``
-selects the flash-attention kernel (``kernels.ops.flash_attention``: the
-hand-written CUDA kernel on the card, its plain version on the CPU) for
-every full-sequence pass — prefill, ``backbone``/``lm_loss`` — and raises
-under autograd (the kernel has no backward pass).  Decode uses
-a cache local to the device under every ``attn_impl``, as the reference
-does; the sequence-sharded cache of the reference waits for multi-GPU
-support (ROADMAP Queue A item 7).
+The port of ``repro/models/attention.py``'s single-device path.
+``"blocked"`` (the default) and ``"naive"`` are plain tensor code;
+``attn_impl="pallas"`` selects the flash-attention kernel
+(``kernels.ops.flash_attention``: the hand-written CUDA kernel on the card,
+its plain version on the CPU) for every full-sequence pass — prefill,
+``backbone``/``lm_loss`` — and for every cross-attention pass, decode's
+included (full attention, Sq != Skv), and raises under autograd (the
+kernel has no backward pass) and where the reference's kernel asserts
+(each length a multiple of ``min(128, length)``: the full-size vision
+model's 1600 image tokens are not).  Self-attention decode uses a cache
+local to the device under every ``attn_impl``, as the reference does; the
+sequence-sharded cache of the reference waits for multi-GPU support
+(ROADMAP Queue A item 7).
 """
 from __future__ import annotations
 
@@ -25,7 +30,12 @@ NEG_INF = -1e30
 
 
 class Attention(nn.Module):
-    def __init__(self, cfg: ModelConfig, device):
+    """The projections and pre-norm scale of an attention layer; a
+    cross-attention layer (``cross``) also has a scalar ``gate`` (its
+    output is scaled by tanh(gate)).  The front-end stub gives image
+    embeddings at d_model, so wk and wv are (d_model, Hkv·hd) either
+    way."""
+    def __init__(self, cfg: ModelConfig, device, cross: bool = False):
         super().__init__()
         d, hd, dt = cfg.d_model, cfg.hd, cfg.pdtype()
         self.wq = param((d, cfg.n_heads * hd), dt, device)
@@ -33,14 +43,20 @@ class Attention(nn.Module):
         self.wv = param((d, cfg.n_kv_heads * hd), dt, device)
         self.wo = param((cfg.n_heads * hd, d), dt, device)
         self.norm = param((d,), dt, device)
+        if cross:
+            self.gate = param((), dt, device)
 
 
-def init_attention(gen: torch.Generator, cfg: ModelConfig, device
-                   ) -> Attention:
-    p = Attention(cfg, device)
+def init_attention(gen: torch.Generator, cfg: ModelConfig, device,
+                   cross: bool = False) -> Attention:
+    """Projections N(0, 1/d_in), norm one; a cross layer's gate zero, so
+    an untrained cross block is the identity (llama-3.2-vision)."""
+    p = Attention(cfg, device, cross)
     for w in (p.wq, p.wk, p.wv, p.wo):
         dense_init(gen, w)
     p.norm.fill_(1.0)
+    if cross:
+        p.gate.zero_()
     return p
 
 
@@ -175,6 +191,36 @@ def self_attention(params: Attention, x: torch.Tensor, cfg: ModelConfig,
     out = matmul(out.reshape(B, S, cfg.n_heads * hd),
                  params.wo.to(h.dtype), cfg)
     return x + out, (k, v)
+
+
+def cross_attention(params: Attention, x: torch.Tensor,
+                    kv_embeds: torch.Tensor | None, cfg: ModelConfig,
+                    kv_cache: tuple | None = None):
+    """Pre-norm gated cross-attention to front-end embeddings (no RoPE, not
+    causal): (x + tanh(gate)·out, (k, v)).
+
+    x: (B, S, D).  k and v are projected from ``kv_embeds`` (B', N, D)
+    through ``matmul`` (the LUT under ``approx_matmul``; the embeddings are
+    not normed) and reshaped to (B, B'·N / B, Hkv, hd) with x's B, as the
+    reference reshapes them (a microbatch given the whole batch's
+    embeddings folds B' / B images into each row's keys), or read from
+    ``kv_cache`` = (k, v)."""
+    B, S, _ = x.shape
+    hd = cfg.hd
+    h = rms_norm(x, params.norm, cfg.norm_eps)
+    q = matmul(h, params.wq.to(h.dtype), cfg).reshape(B, S, cfg.n_heads, hd)
+    if kv_cache is not None:
+        k, v = kv_cache
+    else:
+        k = matmul(kv_embeds, params.wk.to(h.dtype), cfg).reshape(
+            B, -1, cfg.n_kv_heads, hd)
+        v = matmul(kv_embeds, params.wv.to(h.dtype), cfg).reshape(
+            B, -1, cfg.n_kv_heads, hd)
+    out = run_attention(q, k, v, cfg, causal=False)
+    out = matmul(out.reshape(B, S, cfg.n_heads * hd),
+                 params.wo.to(h.dtype), cfg)
+    gate = torch.tanh(params.gate.to(torch.float32)).to(out.dtype)
+    return x + gate * out, (k, v)
 
 
 def decode_self_attention(params: Attention, x: torch.Tensor,

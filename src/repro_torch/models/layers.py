@@ -1,5 +1,6 @@
 """Building blocks of the dense LM: initializers, RMSNorm, projections,
-rotary embeddings, the token embedding and the SwiGLU MLP.
+rotary embeddings, the token embedding (one table, or one per codebook for
+the audio front end) and the SwiGLU or GELU MLP.
 
 Parameters live in ``nn.Module``s allocated with an explicit device and
 dtype and filled from an explicit ``torch.Generator``; they keep the
@@ -92,9 +93,14 @@ def apply_rope(x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor
 # ----------------------------- embeddings ----------------------------------
 
 class Embed(nn.Module):
+    """The token table: (vocab, d_model), or (n_codebooks, vocab, d_model)
+    for the audio front end."""
     def __init__(self, cfg: ModelConfig, device):
         super().__init__()
-        self.tokens = param((cfg.vocab, cfg.d_model), cfg.pdtype(), device)
+        shape = (cfg.vocab, cfg.d_model)
+        if cfg.frontend == "audio":
+            shape = (cfg.n_codebooks,) + shape
+        self.tokens = param(shape, cfg.pdtype(), device)
 
 
 def init_embed(gen: torch.Generator, cfg: ModelConfig, device) -> Embed:
@@ -105,16 +111,30 @@ def init_embed(gen: torch.Generator, cfg: ModelConfig, device) -> Embed:
 
 def embed_tokens(params: Embed, tokens: torch.Tensor, cfg: ModelConfig
                  ) -> torch.Tensor:
-    return params.tokens[tokens].to(cfg.adtype())
+    """tokens (B, S) -> (B, S, d_model) in the activation dtype.  Audio
+    tokens (B, S, C): the C codebooks' embeddings summed in order c = 0 ..
+    C-1 in the table's dtype, then cast, as the reference sums them."""
+    tok = params.tokens
+    if cfg.frontend == "audio":
+        out = tok[0][tokens[..., 0]]
+        for c in range(1, cfg.n_codebooks):
+            out = out + tok[c][tokens[..., c]]
+        return out.to(cfg.adtype())
+    return tok[tokens].to(cfg.adtype())
 
 
 # ----------------------------- MLP (dense FFN) -----------------------------
 
 class MLP(nn.Module):
+    """SwiGLU (``w_gate``, ``w_up``, ``w_down``) or, for ``act="gelu"``,
+    GELU (no ``w_gate``)."""
     def __init__(self, cfg: ModelConfig, device):
         super().__init__()
         d, f, dt = cfg.d_model, cfg.d_ff, cfg.pdtype()
-        self.w_gate = param((d, f), dt, device)
+        if cfg.act == "swiglu":
+            self.w_gate = param((d, f), dt, device)
+        elif cfg.act != "gelu":
+            raise ValueError(f"unknown act {cfg.act!r}")
         self.w_up = param((d, f), dt, device)
         self.w_down = param((f, d), dt, device)
         self.norm = param((d,), dt, device)
@@ -122,7 +142,8 @@ class MLP(nn.Module):
 
 def init_mlp(gen: torch.Generator, cfg: ModelConfig, device) -> MLP:
     p = MLP(cfg, device)
-    dense_init(gen, p.w_gate)
+    if cfg.act == "swiglu":
+        dense_init(gen, p.w_gate)
     dense_init(gen, p.w_up)
     dense_init(gen, p.w_down)
     p.norm.fill_(1.0)
@@ -130,9 +151,14 @@ def init_mlp(gen: torch.Generator, cfg: ModelConfig, device) -> MLP:
 
 
 def mlp(params: MLP, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Pre-norm residual SwiGLU feed-forward."""
+    """Pre-norm residual SwiGLU or GELU feed-forward.  GELU is the tanh
+    approximation in float32, ``jax.nn.gelu``'s default (PyTorch's default
+    is the erf form)."""
     h = rms_norm(x, params.norm, cfg.norm_eps)
     up = matmul(h, params.w_up.to(h.dtype), cfg)
-    gate = matmul(h, params.w_gate.to(h.dtype), cfg)
-    inner = F.silu(gate.to(torch.float32)).to(h.dtype) * up
+    if cfg.act == "swiglu":
+        gate = matmul(h, params.w_gate.to(h.dtype), cfg)
+        inner = F.silu(gate.to(torch.float32)).to(h.dtype) * up
+    else:
+        inner = F.gelu(up.to(torch.float32), approximate="tanh").to(h.dtype)
     return x + matmul(inner, params.w_down.to(h.dtype), cfg)

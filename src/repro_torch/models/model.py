@@ -1,8 +1,9 @@
 """Decoder-only LM: parameters, forward, loss, prefill and decode.
 
-The port of ``repro/models/model.py`` for stacks of attention and SSM
-mixers with a dense SwiGLU MLP, an MoE FFN or no FFN after each, and a
-tied or untied output head.  Layer ``i`` is ``cfg.period[i %
+The port of ``repro/models/model.py`` for stacks of self-attention,
+gated cross-attention and SSM mixers with a dense SwiGLU or GELU MLP, an
+MoE FFN or no FFN after each, and a tied or untied output head (per
+codebook for the audio front end).  Layer ``i`` is ``cfg.period[i %
 len(period)]``, so a hybrid period (jamba: attention at slot 3 of 8, MoE
 on the odd slots) is walked as the reference's ``_apply_period`` walks
 it.  ``Transformer`` holds the parameters as ``nn.Module``s on an
@@ -11,14 +12,19 @@ names.  Layers are walked with a Python loop (the reference scans over
 periods stacked on a leading axis; ``convert.model_params`` unstacks
 them).  ``backbone``, ``forward_train`` and ``lm_loss`` carry the MoE
 load-balancing aux loss summed over the layers (``ce + 0.01 · aux``, as
-the reference).  With ``cfg.remat`` and gradients enabled each layer is
+the reference).  Cross-attention layers attend to ``image_embeds`` (B,
+n_img_tokens, d_model), which ``backbone``, ``forward_train``, ``lm_loss``
+and ``prefill`` take as the reference's do.  The audio front end takes
+(B, S, n_codebooks) tokens; its logits are (B, S, n_codebooks, vocab) and
+its loss the mean CE over every codebook (never chunked).  With
+``cfg.remat`` and gradients enabled each layer is
 checkpointed (``torch.utils.checkpoint``) as the reference's
 ``jax.checkpoint`` policies do.  Caches are a list with one entry per
 layer: a ``{"k", "v"}`` dict, each (B, max_len, Hkv, hd), for attention,
-an ``ssm.SSMState`` for SSM layers; ``decode_step`` updates the list in
+the same of (B, n_img_tokens, Hkv, hd) for cross-attention (filled by the
+prefill from the embeddings, read and left unchanged by decode), an
+``ssm.SSMState`` for SSM layers; ``decode_step`` updates the list in
 place.  ``prefill`` and ``decode_step`` build no autograd graph.
-Cross-attention and the audio / vision front ends are not ported (ROADMAP
-Queue A item 6) and raise.
 """
 from __future__ import annotations
 
@@ -49,18 +55,12 @@ class Transformer(nn.Module):
         self.embed = embed
         self.layers = nn.ModuleList(layers)
         self.final_norm = param((cfg.d_model,), cfg.pdtype(), device)
-        if not cfg.tie_embeddings:
+        if cfg.frontend == "audio":
+            self.lm_head = param((cfg.n_codebooks, cfg.d_model, cfg.vocab),
+                                 cfg.pdtype(), device)
+        elif not cfg.tie_embeddings:
             self.lm_head = param((cfg.d_model, cfg.vocab), cfg.pdtype(),
                                  device)
-
-
-def _check_ported(cfg: ModelConfig) -> None:
-    bad = [s for s in cfg.period
-           if s.cross_attn or s.kind not in ("attn", "ssm")]
-    if bad:
-        raise NotImplementedError(
-            f"{cfg.name}: cross-attention is not ported (ROADMAP Queue A "
-            f"item 6), got {bad}")
 
 
 def layer_spec(cfg: ModelConfig, i: int) -> LayerSpec:
@@ -76,8 +76,9 @@ def _new_layer(cfg: ModelConfig, spec: LayerSpec, device,
         mixer = (SSM.init_ssm(gen, cfg, device) if gen is not None
                  else SSM.SSM(cfg, device))
     else:
-        mixer = (A.init_attention(gen, cfg, device) if gen is not None
-                 else A.Attention(cfg, device))
+        cross = spec.cross_attn
+        mixer = (A.init_attention(gen, cfg, device, cross) if gen is not None
+                 else A.Attention(cfg, device, cross))
     ffn = None
     if spec.has_ffn and spec.moe:
         ffn = (MOE.init_moe(gen, cfg, device) if gen is not None
@@ -91,7 +92,6 @@ def _new_layer(cfg: ModelConfig, spec: LayerSpec, device,
 def skeleton(cfg: ModelConfig, device) -> Transformer:
     """An uninitialized ``Transformer`` of ``cfg`` on ``device`` (``meta``
     allocates nothing)."""
-    _check_ported(cfg)
     layers = [_new_layer(cfg, layer_spec(cfg, i), device, None)
               for i in range(cfg.n_layers)]
     return Transformer(cfg, Embed(cfg, device), layers, device)
@@ -100,24 +100,26 @@ def skeleton(cfg: ModelConfig, device) -> Transformer:
 def init_params(gen: torch.Generator, cfg: ModelConfig) -> Transformer:
     """Random parameters from ``gen``, on the generator's device, with the
     reference's distributions: projections N(0, 1/d_in), the embedding and
-    an untied ``lm_head`` N(0, 0.02²), norms one; the MoE and SSM blocks'
-    as ``moe.init_moe`` and ``ssm.init_ssm`` say."""
-    _check_ported(cfg)
+    an untied (or audio) ``lm_head`` N(0, 0.02²), norms one, cross
+    layers' gates zero; the MoE and SSM blocks' as ``moe.init_moe`` and
+    ``ssm.init_ssm`` say."""
     device = gen.device
     embed = init_embed(gen, cfg, device)
     layers = [_new_layer(cfg, layer_spec(cfg, i), device, gen)
               for i in range(cfg.n_layers)]
     params = Transformer(cfg, embed, layers, device)
     params.final_norm.fill_(1.0)
-    if not cfg.tie_embeddings:
+    if hasattr(params, "lm_head"):
         dense_init(gen, params.lm_head, scale=0.02)
     return params
 
 
 def _mixer_block(spec: LayerSpec, lp: Layer, x: torch.Tensor,
-                 cfg: ModelConfig) -> torch.Tensor:
+                 cfg: ModelConfig, image_embeds=None) -> torch.Tensor:
     if spec.kind == "ssm":
         return SSM.ssm_forward(lp.mixer, x, cfg)[0]
+    if spec.cross_attn:
+        return A.cross_attention(lp.mixer, x, image_embeds, cfg)[0]
     return A.self_attention(lp.mixer, x, cfg)[0]
 
 
@@ -131,8 +133,10 @@ def _ffn_block(spec: LayerSpec, lp: Layer, x: torch.Tensor,
     return mlp(lp.ffn, x, cfg), 0.0
 
 
-def _layer(spec: LayerSpec, lp: Layer, x: torch.Tensor, cfg: ModelConfig):
-    return _ffn_block(spec, lp, _mixer_block(spec, lp, x, cfg), cfg)
+def _layer(spec: LayerSpec, lp: Layer, x: torch.Tensor, cfg: ModelConfig,
+           image_embeds=None):
+    return _ffn_block(spec, lp, _mixer_block(spec, lp, x, cfg, image_embeds),
+                      cfg)
 
 
 def _remat(fn, *args):
@@ -141,10 +145,11 @@ def _remat(fn, *args):
                       preserve_rng_state=False)
 
 
-def backbone(params: Transformer, x: torch.Tensor, cfg: ModelConfig
-             ) -> tuple[torch.Tensor, torch.Tensor | float]:
-    """Embedded inputs -> (final normed hidden states, the MoE aux loss
-    summed over the layers; 0.0 without MoE layers).
+def backbone(params: Transformer, x: torch.Tensor, cfg: ModelConfig,
+             image_embeds=None) -> tuple[torch.Tensor, torch.Tensor | float]:
+    """Embedded inputs (and the cross layers' ``image_embeds``) -> (final
+    normed hidden states, the MoE aux loss summed over the layers; 0.0
+    without MoE layers).
 
     With ``cfg.remat`` (and gradients enabled) the backward pass recomputes
     each layer from its input: ``remat_policy="all"`` keeps only the
@@ -158,11 +163,11 @@ def backbone(params: Transformer, x: torch.Tensor, cfg: ModelConfig
     for i, lp in enumerate(params.layers):
         spec = layer_spec(cfg, i)
         if not remat:
-            x, a = _layer(spec, lp, x, cfg)
+            x, a = _layer(spec, lp, x, cfg, image_embeds)
         elif cfg.remat_policy == "all":
-            x, a = _remat(_layer, spec, lp, x, cfg)
+            x, a = _remat(_layer, spec, lp, x, cfg, image_embeds)
         else:
-            x = _remat(_mixer_block, spec, lp, x, cfg)
+            x = _remat(_mixer_block, spec, lp, x, cfg, image_embeds)
             x, a = _remat(_ffn_block, spec, lp, x, cfg)
         aux = aux + a
     return rms_norm(x, params.final_norm, cfg.norm_eps), aux
@@ -171,17 +176,22 @@ def backbone(params: Transformer, x: torch.Tensor, cfg: ModelConfig
 def logits_from_hidden(params: Transformer, x: torch.Tensor,
                        cfg: ModelConfig) -> torch.Tensor:
     """The output head: the token embedding transposed when tied, else
-    ``lm_head``."""
+    ``lm_head``; audio: (B, S, C, vocab) from the (C, D, vocab) head (a
+    plain product under ``approx_matmul`` too, as the reference's
+    einsum)."""
+    if cfg.frontend == "audio":
+        return torch.einsum("bsd,cdv->bscv", x, params.lm_head.to(x.dtype))
     if cfg.tie_embeddings:
         return x @ params.embed.tokens.to(x.dtype).T
     return x @ params.lm_head.to(x.dtype)
 
 
 def forward_train(params: Transformer, tokens: torch.Tensor,
-                  cfg: ModelConfig):
+                  cfg: ModelConfig, image_embeds=None):
     """tokens (B, S) -> (full-sequence logits (B, S, vocab), MoE aux
-    loss)."""
-    x, aux = backbone(params, embed_tokens(params.embed, tokens, cfg), cfg)
+    loss); audio tokens (B, S, C) -> logits (B, S, C, vocab)."""
+    x, aux = backbone(params, embed_tokens(params.embed, tokens, cfg), cfg,
+                      image_embeds)
     return logits_from_hidden(params, x, cfg), aux
 
 
@@ -194,11 +204,13 @@ def _ce_sum(params: Transformer, x: torch.Tensor, targets: torch.Tensor,
 
 
 def lm_loss(params: Transformer, tokens: torch.Tensor,
-            targets: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Mean next-token cross-entropy (float32) + 0.01 · the MoE aux
-    loss."""
-    x, aux = backbone(params, embed_tokens(params.embed, tokens, cfg), cfg)
-    if cfg.loss_vocab_chunk:
+            targets: torch.Tensor, cfg: ModelConfig,
+            image_embeds=None) -> torch.Tensor:
+    """Mean next-token cross-entropy (float32; audio: over every position
+    and codebook, never chunked) + 0.01 · the MoE aux loss."""
+    x, aux = backbone(params, embed_tokens(params.embed, tokens, cfg), cfg,
+                      image_embeds)
+    if cfg.loss_vocab_chunk and cfg.frontend != "audio":
         ce = _chunked_ce(params, x, targets, cfg)
     else:
         ce = _ce_sum(params, x, targets, cfg) / targets.numel()
@@ -229,23 +241,34 @@ def _chunked_ce(params: Transformer, x: torch.Tensor, targets: torch.Tensor,
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype: torch.dtype | None = None, device=None) -> list:
     """Zeroed per-layer caches: a ``{"k", "v"}`` dict of (batch, max_len,
-    Hkv, hd) for attention layers, a zeroed ``SSMState`` (conv tails in
+    Hkv, hd) for attention layers and of (batch, n_img_tokens, Hkv, hd)
+    for cross-attention layers, a zeroed ``SSMState`` (conv tails in
     ``dtype``, the state in float32) for SSM layers."""
     dtype = dtype or cfg.adtype()
-    shape = (batch, max_len, cfg.n_kv_heads, cfg.hd)
-    return [SSM.init_ssm_state(cfg, batch, dtype, device)
-            if layer_spec(cfg, i).kind == "ssm" else
-            {"k": torch.zeros(shape, dtype=dtype, device=device),
-             "v": torch.zeros(shape, dtype=dtype, device=device)}
-            for i in range(cfg.n_layers)]
+
+    def kv(length):
+        shape = (batch, length, cfg.n_kv_heads, cfg.hd)
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+    caches = []
+    for i in range(cfg.n_layers):
+        spec = layer_spec(cfg, i)
+        if spec.kind == "ssm":
+            caches.append(SSM.init_ssm_state(cfg, batch, dtype, device))
+        else:
+            caches.append(kv(cfg.n_img_tokens if spec.cross_attn
+                             else max_len))
+    return caches
 
 
 @torch.no_grad()
 def prefill(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig,
-            max_len: int | None = None):
+            max_len: int | None = None, image_embeds=None):
     """Process a prompt: (last-position logits (B, 1, vocab), caches: KV
-    padded to ``max_len``, SSM states after the prompt).  The MoE layers
-    run at ``capacity_factor``, as the reference's prefill."""
+    padded to ``max_len``, cross layers' K/V of ``image_embeds``, SSM
+    states after the prompt).  The MoE layers run at ``capacity_factor``,
+    as the reference's prefill."""
     S = tokens.shape[1]
     pad = (max_len or S) - S
     x = embed_tokens(params.embed, tokens, cfg)
@@ -255,6 +278,9 @@ def prefill(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig,
         if spec.kind == "ssm":
             x, st = SSM.ssm_forward(lp.mixer, x, cfg, return_state=True)
             cache.append(st)
+        elif spec.cross_attn:
+            x, (k, v) = A.cross_attention(lp.mixer, x, image_embeds, cfg)
+            cache.append({"k": k, "v": v})
         else:
             x, (k, v) = A.self_attention(lp.mixer, x, cfg)
             if pad > 0:
@@ -269,15 +295,19 @@ def prefill(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig,
 @torch.no_grad()
 def decode_step(params: Transformer, cache: list, tokens: torch.Tensor,
                 pos: torch.Tensor, cfg: ModelConfig):
-    """One decode step: tokens (B, 1), pos (B,) -> (logits (B, 1, vocab),
-    cache updated in place).  The MoE layers run at full capacity (no
-    drops), as the reference's decode."""
+    """One decode step: tokens (B, 1) (audio (B, 1, C)), pos (B,) ->
+    (logits (B, 1, vocab) (audio (B, 1, C, vocab)), cache updated in
+    place; the cross layers' caches are read, not written).  The MoE
+    layers run at full capacity (no drops), as the reference's decode."""
     x = embed_tokens(params.embed, tokens, cfg)
     for i, lp in enumerate(params.layers):
         spec = layer_spec(cfg, i)
         lc = cache[i]
         if spec.kind == "ssm":
             x, cache[i] = SSM.ssm_decode_step(lp.mixer, x, lc, cfg)
+        elif spec.cross_attn:
+            x, _ = A.cross_attention(lp.mixer, x, None, cfg,
+                                     kv_cache=(lc["k"], lc["v"]))
         else:
             x, lc["k"], lc["v"] = A.decode_self_attention(
                 lp.mixer, x, lc["k"], lc["v"], pos, cfg)

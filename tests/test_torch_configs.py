@@ -1,8 +1,13 @@
 """The port's configurations against the JAX package's: the dense
 ``llama3_2_1b``, ``phi4_mini_3_8b``, ``stablelm_1_6b`` and ``stablelm_12b``
 (both stablelms with an untied ``lm_head``), the MoE ``qwen3_moe_30b_a3b``
-and ``kimi_k2_1t_a32b``, the SSM ``mamba2_1_3b`` and the hybrid
-``jamba_1_5_large_398b``.  Each reduced configuration's forward on the
+and ``kimi_k2_1t_a32b``, the SSM ``mamba2_1_3b``, the hybrid
+``jamba_1_5_large_398b``, and the front ends' ``llama3_2_vision_11b``
+(gated cross-attention to image embeddings) and ``musicgen_large`` (GELU,
+four codebooks).  The vision model runs with every cross layer's gate at
+GATE and random image embeddings given to both packages (the reference's
+zero gate and zero embeddings make a cross layer the identity).  Each
+reduced configuration's forward on the
 reference's weights (``convert.model_params``) gives the reference's
 logits and aux loss within the float32 tolerance of ``test_torch_model``,
 its prefill and decode the reference's logits and caches (carried across
@@ -60,9 +65,9 @@ PARAM_RTOL = 5e-7
 TIE_FACTOR = 10.0
 ARCHS = ("llama3_2_1b", "phi4_mini_3_8b", "stablelm_1_6b", "stablelm_12b",
          "qwen3_moe_30b_a3b", "kimi_k2_1t_a32b", "mamba2_1_3b",
-         "jamba_1_5_large_398b")
-NEW_ARCHS = ARCHS[4:]            # with MoE or SSM layers
-UNPORTED = ("llama3_2_vision_11b", "musicgen_large")
+         "jamba_1_5_large_398b", "llama3_2_vision_11b", "musicgen_large")
+NEW_ARCHS = ARCHS[4:]            # with MoE, SSM or cross layers, or audio
+GATE = 0.5                       # the cross layers' gate in these tests
 # full-size parameter counts: tests/test_archs.py's ranges
 PARAM_RANGES = {"llama3_2_1b": (1.0e9, 1.8e9),
                 "phi4_mini_3_8b": (3.0e9, 4.6e9),
@@ -71,10 +76,13 @@ PARAM_RANGES = {"llama3_2_1b": (1.0e9, 1.8e9),
                 "qwen3_moe_30b_a3b": (25e9, 34e9),
                 "kimi_k2_1t_a32b": (0.9e12, 1.15e12),
                 "jamba_1_5_large_398b": (330e9, 430e9),
-                "mamba2_1_3b": (1.0e9, 1.6e9)}
+                "mamba2_1_3b": (1.0e9, 1.6e9),
+                "musicgen_large": (1.4e9, 2.6e9),
+                "llama3_2_vision_11b": (8.5e9, 12e9)}
 FIELDS = ("name", "family", "n_layers", "d_model", "n_heads", "n_kv_heads",
-          "head_dim", "d_ff", "vocab", "rope_theta", "norm_eps",
-          "tie_embeddings", "param_dtype", "act_dtype", "remat",
+          "head_dim", "d_ff", "vocab", "rope_theta", "norm_eps", "act",
+          "tie_embeddings", "frontend", "n_img_tokens", "n_codebooks",
+          "param_dtype", "act_dtype", "remat",
           "remat_policy", "loss_vocab_chunk", "approx_matmul", "attn_impl",
           "attn_block_q", "attn_block_kv", "hd", "n_periods")
 
@@ -92,48 +100,98 @@ def test_configs_are_the_references(arch):
                       for s in jc.period]
         assert dataclasses.asdict(tc.moe) == dataclasses.asdict(jc.moe)
         assert dataclasses.asdict(tc.ssm) == dataclasses.asdict(jc.ssm)
-        assert jc.act == "swiglu" and jc.frontend == "none"
         assert str(tc.pdtype()).split(".")[-1] == jc.param_dtype
 
 
 def test_ported_and_unported_architectures():
-    assert set(TB.PORTED) == set(ARCHS)
-    assert set(TB.ARCH_IDS) - set(ARCHS) == set(UNPORTED)
-    for arch in UNPORTED:
-        with pytest.raises(NotImplementedError, match="item 6"):
-            TB.get_arch(arch)
-    assert TB.TRAIN_4K == TB.ShapeConfig(
-        JB.TRAIN_4K.name, JB.TRAIN_4K.seq_len, JB.TRAIN_4K.global_batch,
-        JB.TRAIN_4K.mode)
+    """All ten architectures are ported; an unknown id raises; the shape
+    cells are the reference's."""
+    assert TB.PORTED == TB.ARCH_IDS == JB.ARCH_IDS
+    assert set(TB.ARCH_IDS) == set(ARCHS)
+    for arch in ARCHS:
+        assert TB.get_arch(arch).CONFIG.name == JB.get_arch(arch).CONFIG.name
+    with pytest.raises(ValueError, match="unknown"):
+        TB.get_arch("llama3_2_vision_90b")
+    as_tuple = lambda s: (s.name, s.seq_len, s.global_batch, s.mode)
+    assert [as_tuple(s) for s in TB.ALL_SHAPES] == [as_tuple(s)
+                                                     for s in JB.ALL_SHAPES]
+    assert TB.SUBQUADRATIC == JB.SUBQUADRATIC
+    for arch in ARCHS:
+        assert [s.name for s in TB.shapes_for(arch)] == [
+            s.name for s in JB.shapes_for(arch)]
+
+
+def _with_gate(jp, jcfg):
+    """The reference's parameters with every cross layer's gate at GATE."""
+    for i, spec in enumerate(jcfg.period):
+        mix = jp["layers"][f"layer{i}"]["mixer"]
+        if spec.cross_attn:
+            mix["gate"] = jnp.full_like(mix["gate"], GATE)
+    return jp
 
 
 def _models(arch):
     jcfg = dataclasses.replace(JB.get_arch(arch).reduced(),
                                scan_layers=False)
     tcfg = TB.get_arch(arch).reduced()
-    jp = JM.init_params(jax.random.PRNGKey(0), jcfg)
+    jp = _with_gate(JM.init_params(jax.random.PRNGKey(0), jcfg), jcfg)
     return jcfg, tcfg, jp, C.model_params(jp, tcfg)
+
+
+def _tokens(cfg, seed, shape):
+    """Random token ids of ``shape`` (B, S), with the codebook axis for
+    audio."""
+    if cfg.frontend == "audio":
+        shape = shape + (cfg.n_codebooks,)
+    return np.random.default_rng(seed).integers(0, cfg.vocab, shape,
+                                                dtype=np.int32)
+
+
+def _embeds(cfg, batch, seed=5):
+    """Random image embeddings (batch, n_img_tokens, d_model) for the
+    vision front end, as (numpy, port tensor); (None, None) otherwise."""
+    if cfg.frontend != "vision":
+        return None, None
+    x = np.random.default_rng(seed).standard_normal(
+        (batch, cfg.n_img_tokens, cfg.d_model)).astype(np.float32)
+    return x, torch.as_tensor(x)
+
+
+def _reference_embeds(monkeypatch, jp, img):
+    """The reference's launchers (``serve._serve_loop``,
+    ``quality_report``) on ``jp`` (their own draw is PRNGKey(0)'s, GATE
+    aside) and, for vision, ``img`` in place of their zero embeddings."""
+    monkeypatch.setattr(JM, "init_params", lambda key, cfg: jp)
+    if img is None:
+        return
+    for name in ("prefill", "lm_loss"):
+        real = getattr(JM, name)
+        monkeypatch.setattr(JM, name, lambda *a, _r=real, image_embeds,
+                            **kw: _r(*a, image_embeds=jnp.asarray(img)
+                                     [:image_embeds.shape[0]], **kw))
 
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_reduced_forward_matches_reference(arch):
     jcfg, tcfg, jp, tp = _models(arch)
     assert ("lm_head" in jp) == (not tcfg.tie_embeddings)
-    toks = np.random.default_rng(1).integers(0, jcfg.vocab, (2, 24),
-                                             dtype=np.int32)
-    want, jaux = JM.forward_train(jp, jnp.asarray(toks), jcfg)
+    toks = _tokens(jcfg, 1, (2, 24))
+    ji, ti = _embeds(jcfg, 2)
+    want, jaux = JM.forward_train(jp, jnp.asarray(toks), jcfg,
+                                  image_embeds=ji)
     with torch.no_grad():
         got, taux = TM.forward_train(
-            tp, torch.as_tensor(toks, dtype=torch.int64), tcfg)
+            tp, torch.as_tensor(toks, dtype=torch.int64), tcfg, ti)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL,
                                atol=ATOL)
     assert float(taux) == pytest.approx(float(jaux), rel=1e-6)
     assert (float(taux) > 0) == any(s.moe for s in tcfg.period)
-    wl = float(JM.lm_loss(jp, jnp.asarray(toks), jnp.asarray(toks), jcfg))
+    wl = float(JM.lm_loss(jp, jnp.asarray(toks), jnp.asarray(toks), jcfg,
+                          image_embeds=ji))
     with torch.no_grad():
         tl = float(TM.lm_loss(tp, torch.as_tensor(toks, dtype=torch.int64),
                               torch.as_tensor(toks, dtype=torch.int64),
-                              tcfg))
+                              tcfg, ti))
     assert tl == pytest.approx(wl, rel=1e-6)
     # the other way: the port's parameters in the reference's tree
     back = C.reference_params(tp, tcfg)
@@ -142,13 +200,17 @@ def test_reduced_forward_matches_reference(arch):
 
 
 @pytest.mark.parametrize("arch", ARCHS)
-def test_reduced_serve_matches_reference(arch):
+def test_reduced_serve_matches_reference(arch, monkeypatch):
     """The greedy continuous-batching loop on the same weights: the
-    reference's tokens (fp32, blocked attention)."""
+    reference's tokens (fp32, blocked attention; audio: codebook 0 of
+    each step, all four fed back)."""
     jcfg, tcfg, jp, tp = _models(arch)
     n_req, prompt, gen, slots = 4, 16, 8, 2
+    ji, ti = _embeds(jcfg, slots)
+    _reference_embeds(monkeypatch, jp, ji)
     want = j_serve._serve_loop(jcfg, n_req, prompt, gen, slots, 0)
-    got = t_serve._serve_loop(tcfg, tp, n_req, prompt, gen, slots, 0, "cpu")
+    got = t_serve._serve_loop(tcfg, tp, n_req, prompt, gen, slots, 0, "cpu",
+                              ti)
     assert got["decoded_tokens"] == want["decoded_tokens"] == n_req * gen
     assert got["outputs"] == {k: list(v) for k, v in want["outputs"].items()}
 
@@ -166,14 +228,16 @@ def _close_trees(got, want):
 @pytest.mark.parametrize("arch", NEW_ARCHS)
 def test_reduced_prefill_decode_and_caches(arch):
     """Prefill and three decode steps: the reference's logits, and its
-    caches (KV dicts and SSM states) carried across both ways by
-    ``convert.cache`` / ``convert.reference_cache``."""
+    caches (KV dicts, cross layers' K/V of the embeddings, SSM states)
+    carried across both ways by ``convert.cache`` /
+    ``convert.reference_cache``."""
     jcfg, tcfg, jp, tp = _models(arch)
-    toks = np.random.default_rng(2).integers(0, jcfg.vocab, (2, 12),
-                                             dtype=np.int32)
-    jl, jc = JM.prefill(jp, jnp.asarray(toks), jcfg, max_len=16)
+    toks = _tokens(jcfg, 2, (2, 12))
+    ji, ti = _embeds(jcfg, 2)
+    jl, jc = JM.prefill(jp, jnp.asarray(toks), jcfg, max_len=16,
+                        image_embeds=ji)
     tl, tc = TM.prefill(tp, torch.as_tensor(toks, dtype=torch.int64), tcfg,
-                        max_len=16)
+                        max_len=16, image_embeds=ti)
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=RTOL,
                                atol=ATOL)
     kinds = {type(c).__name__ for c in tc}
@@ -185,6 +249,8 @@ def test_reduced_prefill_decode_and_caches(arch):
     pc = C.cache(jc, tcfg)
     pos = np.full((2,), 12, np.int32)
     tok = np.asarray(jnp.argmax(jl[:, -1], axis=-1))[:, None]
+    assert tok.shape == ((2, 1, jcfg.n_codebooks) if jcfg.n_codebooks
+                         else (2, 1))
     for _ in range(3):
         jl, jc = JM.decode_step(jp, jc, jnp.asarray(tok), jnp.asarray(pos),
                                 jcfg)
@@ -205,18 +271,22 @@ def _lut():
 
 
 @pytest.mark.parametrize("arch", NEW_ARCHS)
-def test_reduced_quality_report_matches_reference(arch):
-    """``quality_report`` on an approximate table (attention and SSM
-    projections through it, the experts exact, as in the reference): the
-    reference's perplexities within rtol 1e-4, as for llama
-    (``test_torch_serve``)."""
-    _, tcfg, _, tp = _models(arch)
+def test_reduced_quality_report_matches_reference(arch, monkeypatch):
+    """``quality_report`` on an approximate table (attention, cross K/V
+    and SSM projections through it, the experts and the audio head exact,
+    as in the reference): the reference's perplexities within rtol 1e-4,
+    as for llama (``test_torch_serve``)."""
+    _, tcfg, jp, tp = _models(arch)
     lut = _lut()
+    ji, ti = _embeds(tcfg, 4)
+    _reference_embeds(monkeypatch, jp, ji)
     want = j_serve.quality_report(arch, lut, seq_len=16)
-    toks = jax.random.randint(jax.random.PRNGKey(0), (4, 16), 0, tcfg.vocab)
+    shape = (4, 16) + ((tcfg.n_codebooks,) if tcfg.n_codebooks else ())
+    toks = jax.random.randint(jax.random.PRNGKey(0), shape, 0, tcfg.vocab)
     got = t_serve.quality_report(
         arch, lut, device="cpu", params=tp,
-        tokens=torch.as_tensor(np.array(toks), dtype=torch.int64))
+        tokens=torch.as_tensor(np.array(toks), dtype=torch.int64),
+        image_embeds=ti)
     for k in ("ppl_fp32", "ppl_int8", "ppl_approx"):
         assert np.isfinite(got[k])
         assert got[k] == pytest.approx(want[k], rel=1e-4), k
@@ -311,17 +381,23 @@ def test_train_step_matches_reference(arch):
     ``repro.launch.steps.make_train_step``."""
     jcfg = JB.get_arch(arch).reduced()
     tcfg = TB.get_arch(arch).reduced()
-    jp = JM.init_params(jax.random.PRNGKey(0), jcfg)
+    jp = _with_gate(JM.init_params(jax.random.PRNGKey(0), jcfg), jcfg)
     name = JB.get_arch(arch).OPTIMIZER
     assert TB.get_arch(arch).OPTIMIZER == name
     b = synth_batch(DataConfig(vocab=jcfg.vocab, seq_len=64,
-                               global_batch=8), 0)
+                               global_batch=8,
+                               n_codebooks=jcfg.n_codebooks), 0)
     jb = {k: jnp.asarray(v) for k, v in b.items()}
     tb = {k: torch.as_tensor(v, dtype=torch.int64) for k, v in b.items()}
+    ji, ti = _embeds(jcfg, 8)
+    if ji is not None:
+        jb["image_embeds"], tb["image_embeds"] = jnp.asarray(ji), ti
     jloss, jg = jax.jit(jax.value_and_grad(
-        lambda p: JM.lm_loss(p, jb["tokens"], jb["targets"], jcfg)))(jp)
+        lambda p: JM.lm_loss(p, jb["tokens"], jb["targets"], jcfg,
+                             image_embeds=jb.get("image_embeds"))))(jp)
     tloss, tg = ST.loss_and_grads(C.model_params(jp, tcfg), tcfg,
-                                  tb["tokens"], tb["targets"])
+                                  tb["tokens"], tb["targets"],
+                                  image_embeds=ti)
     assert float(tloss) == pytest.approx(float(jloss), rel=LOSS_RTOL)
     noise = _check_grads(jg, tg)
 

@@ -243,15 +243,19 @@ def test_init_params_distributions():
 
 
 def test_other_architectures_raise():
+    """Only an unknown architecture raises: the front ends' two resolve,
+    and a cross-attention period builds, with a zero gate on each cross
+    layer (initialized) or none allocated (``meta``)."""
+    with pytest.raises(ValueError, match="unknown architecture"):
+        B.get_arch("llama3_2_vision_90b")
     for arch in ("llama3_2_vision_11b", "musicgen_large"):
-        with pytest.raises(NotImplementedError, match="item 6"):
-            B.get_arch(arch)
+        assert B.get_arch(arch).CONFIG.frontend in ("vision", "audio")
     cfg = dataclasses.replace(TL.reduced(),
                               period=(B.LayerSpec(cross_attn=True),))
-    for build in (lambda: TM.init_params(torch.Generator(), cfg),
-                  lambda: TM.skeleton(cfg, "meta")):
-        with pytest.raises(NotImplementedError, match="item 6"):
-            build()
+    p = TM.init_params(torch.Generator(), cfg)
+    assert all(float(lp.mixer.gate) == 0.0 for lp in p.layers)
+    sk = TM.skeleton(cfg, "meta")
+    assert all(lp.mixer.gate.shape == () for lp in sk.layers)
 
 
 @pytest.mark.parametrize("shape", [(B_ * S_, 64), (3, 5, 64)])
