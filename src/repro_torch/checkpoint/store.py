@@ -233,12 +233,19 @@ def _as_template(arr: np.ndarray, tmpl, where: str):
     return arr.astype(tmpl.dtype)
 
 
-def load_checkpoint(ckpt_dir: str, step: int, template: dict[str, Any]
+def load_checkpoint(ckpt_dir: str, step: int, template: dict[str, Any],
+                    shardings: dict[str, Any] | None = None
                     ) -> tuple[dict[str, Any], dict]:
     """Load step ``step`` into the structure of ``template`` (a nested
     dict).  Where the template's leaf is a tensor the result is a tensor of
     its dtype on its device, else a numpy array cast to the leaf's dtype.
-    Returns (tree, metadata)."""
+    Returns (tree, metadata).
+
+    ``shardings``: a tree of ``parallel.ctx.Sharding`` (or None leaves)
+    matching ``template``, whose leaves are then this rank's slices: each
+    takes its slice of the whole leaf on disk (read through a memory map),
+    so a checkpoint written on one mesh, or by either package on one
+    device, restores onto any mesh."""
     path = _step_dir(ckpt_dir, step)
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
@@ -246,10 +253,32 @@ def load_checkpoint(ckpt_dir: str, step: int, template: dict[str, Any]
     if manifest["n_leaves"] != len(tmpl_leaves):
         raise ValueError(f"checkpoint has {manifest['n_leaves']} leaves, "
                          f"template {len(tmpl_leaves)}: structure changed")
-    out = [_as_template(np.load(os.path.join(path, f"leaf_{i}.npy")), tmpl,
-                        f"leaf {i}")
-           for i, tmpl in enumerate(tmpl_leaves)]
+    shard_leaves = (T.leaves(shardings) if shardings is not None
+                    else [None] * len(tmpl_leaves))
+    out = []
+    for i, (tmpl, sh) in enumerate(zip(tmpl_leaves, shard_leaves)):
+        arr = np.load(os.path.join(path, f"leaf_{i}.npy"),
+                      mmap_mode="r" if sh is not None else None)
+        if sh is not None:
+            arr = np.ascontiguousarray(arr[sh.index(arr.shape)])
+        out.append(_as_template(arr, tmpl, f"leaf {i}"))
     return T.unflatten(template, out), manifest["metadata"]
+
+
+def gather_to_host(tree: dict[str, Any], shardings: dict[str, Any],
+                   writer: bool) -> dict[str, Any] | None:
+    """The whole leaves of a tree of this rank's slices (``shardings`` as
+    in ``load_checkpoint``), gathered leaf by leaf (every rank takes part)
+    and copied to the host on the ``writer`` alone: the tree to save there,
+    None elsewhere.  Checkpoints of a sharded run are written whole, in the
+    reference's layout, by one writer."""
+    from repro_torch.parallel import collectives as coll
+    out = []
+    for x, sh in zip(T.leaves(tree), T.leaves(shardings)):
+        whole = coll.gather(x.detach(), sh)
+        out.append(to_host(whole) if writer else None)
+        del whole
+    return T.unflatten(tree, out) if writer else None
 
 
 def cleanup(ckpt_dir: str, keep: int = 3) -> None:

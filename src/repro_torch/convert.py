@@ -11,6 +11,13 @@ the other way, into the reference's trees of numpy arrays.  bfloat16
 travels as numpy's 2-byte void records (the bytes of the bfloat16 value,
 what the reference's checkpoints hold), or as any array ``numpy.asarray``
 widens exactly to float32.  Nothing here imports JAX.
+
+On a mesh (``parallel.ctx``) the port's parameters are this rank's slices
+of the reference's: ``param_shardings`` maps the reference's spec tree
+(``models.model.param_specs``) onto the port's parameter names,
+``shard_params`` cuts a whole model to this rank's slices, and
+``model_params`` / ``cache`` place the reference's whole arrays as local
+slices while ``reference_params`` / ``reference_cache`` gather them back.
 """
 from __future__ import annotations
 
@@ -22,8 +29,13 @@ from repro_torch.checkpoint.store import BF16_RECORD, to_host
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.evolve import EvolveState
 from repro_torch.core.genome import Genome
-from repro_torch.models.model import Transformer, skeleton
+from torch import nn
+
+from repro_torch.models.model import (Transformer, layer_cache_shardings,
+                                      param_specs, skeleton)
 from repro_torch.models.ssm import SSMState
+from repro_torch.parallel import collectives as coll
+from repro_torch.parallel import ctx
 
 
 def tensor(x, dtype: torch.dtype, device: torch.device | str = "cpu"
@@ -111,6 +123,33 @@ def _layer_names(cfg: ModelConfig):
                        i // period, part, name)
 
 
+def param_shardings(cfg: ModelConfig) -> dict:
+    """Each of the port's parameter names -> its ``Sharding`` on the active
+    mesh (a layer's: the reference's stacked spec without its leading
+    period dim)."""
+    specs = param_specs(cfg)
+    out = {"embed.tokens": specs["embed"]["tokens"],
+           "final_norm": specs["final_norm"]}
+    if "lm_head" in specs:
+        out["lm_head"] = specs["lm_head"]
+    for name, slot, _, part, key in _layer_names(cfg):
+        out[name] = specs["layers"][slot][part][key][1:]
+    return {k: ctx.named_sharding(v) for k, v in out.items()}
+
+
+def shard_params(params: Transformer, cfg: ModelConfig) -> Transformer:
+    """Cut the whole ``params`` to this rank's slices on the active mesh, in
+    place (each parameter's ``sharding`` attribute says how; its gathers
+    are ``parallel.collectives.materialize``).  Returns ``params``."""
+    shardings = param_shardings(cfg)
+    with torch.no_grad():
+        for name, p in params.named_parameters():
+            sh = shardings[name]
+            p.data = coll.place(p.data, sh)
+            p.sharding = sh
+    return params
+
+
 def reference_tree(params: Transformer, cfg: ModelConfig,
                    leaf=lambda p: p) -> dict:
     """``leaf`` of every parameter (the parameter itself by default, or
@@ -136,7 +175,9 @@ def load_reference_tree(params: Transformer, tree, cfg: ModelConfig
                         ) -> Transformer:
     """Copy a parameter tree in the reference's layout (leaves: tensors,
     numpy arrays, bfloat16 records, JAX arrays) into ``params``, each leaf
-    cast to its parameter's dtype and device; returns ``params``."""
+    cast to its parameter's dtype and device; returns ``params``.  A
+    sharded parameter takes its slice of a leaf of the whole shape, or a
+    leaf of its own shape as it is."""
     own = dict(params.named_parameters())
     state = {"embed.tokens": tree["embed"]["tokens"],
              "final_norm": tree["final_norm"]}
@@ -151,6 +192,9 @@ def load_reference_tree(params: Transformer, tree, cfg: ModelConfig
     with torch.no_grad():
         for name, p in own.items():
             src = state[name]
+            sh = getattr(p, "sharding", None)
+            if sh is not None and tuple(src.shape) != tuple(p.shape):
+                src = src[sh.index(src.shape)]
             if not isinstance(src, torch.Tensor):
                 src = to_tensor(src, p.dtype, p.device)
             if tuple(src.shape) != tuple(p.shape):
@@ -169,14 +213,28 @@ def model_params(tree, cfg: ModelConfig, device: torch.device | str = "cpu"
     ``final_norm``, ``lm_head`` when the head is untied ((C, D, V) for
     audio), and ``layers.layer{j}`` with every leaf
     stacked over ``n_periods``.  Values arrive unchanged (bfloat16 through
-    float32 or as its bits)."""
-    return load_reference_tree(skeleton(cfg, device), tree, cfg)
+    float32 or as its bits).  On a mesh, this rank's slices."""
+    if ctx.get_mesh() is None:
+        return load_reference_tree(skeleton(cfg, device), tree, cfg)
+    params = skeleton(cfg, "meta")
+    shardings = param_shardings(cfg)
+    for name, p in list(params.named_parameters()):
+        owner, _, leaf = name.rpartition(".")
+        local = nn.Parameter(torch.empty(
+            shardings[name].shard_shape(p.shape), dtype=p.dtype,
+            device=device), requires_grad=False)
+        local.sharding = shardings[name]
+        setattr(params.get_submodule(owner), leaf, local)
+    return load_reference_tree(params, tree, cfg)
 
 
 def reference_params(params: Transformer, cfg: ModelConfig) -> dict:
     """``params`` as the reference's parameter tree of numpy arrays (the
-    inverse of ``model_params``; bfloat16 leaves as 2-byte records)."""
-    return T.map(to_host, reference_tree(params, cfg))
+    inverse of ``model_params``; bfloat16 leaves as 2-byte records): whole
+    leaves, gathered on a mesh."""
+    return T.map(to_host, reference_tree(
+        params, cfg, leaf=lambda p: coll.gather(p.detach(),
+                                                getattr(p, "sharding", None))))
 
 
 def _leaf_tensor(x, device) -> torch.Tensor:
@@ -197,29 +255,46 @@ def cache(tree, cfg: ModelConfig, device: torch.device | str = "cpu"
     stacked over ``n_periods``; an ``SSMState`` for SSM slots, a ``{"k",
     "v"}`` dict otherwise, (B, n_img_tokens, Hkv, hd) for cross slots) as
     the port's per-layer list, each leaf in its own dtype on
-    ``device``."""
+    ``device``: on a mesh, this rank's slices (``models.model.
+    cache_specs``)."""
     period = len(cfg.period)
     out = []
     for i in range(cfg.n_layers):
         lc, idx = tree[f"layer{i % period}"], i // period
         if cfg.period[i % period].kind == "ssm":
-            out.append(SSMState(*(_leaf_tensor(getattr(lc, f)[idx], device)
-                                  for f in SSMState._fields)))
+            lc = SSMState(*(_leaf_tensor(getattr(lc, f)[idx], device)
+                            for f in SSMState._fields))
         else:
-            out.append({k: _leaf_tensor(lc[k][idx], device)
-                        for k in ("k", "v")})
+            lc = {k: _leaf_tensor(lc[k][idx], device) for k in ("k", "v")}
+        out.append(_cache_layout(lc, cfg, i, None, coll.place))
     return out
 
 
-def reference_cache(cache: list, cfg: ModelConfig) -> dict:
+def _cache_layout(lc, cfg: ModelConfig, i: int, batch: int | None, move):
+    """``move(leaf, sharding)`` over layer ``i``'s cache on the active mesh
+    (``lc`` itself with no mesh); ``batch`` defaults to the leaves'."""
+    if ctx.get_mesh() is None:
+        return lc
+    first = lc[0] if isinstance(lc, SSMState) else lc["k"]
+    sh = layer_cache_shardings(cfg, batch or first.shape[0], i)
+    if isinstance(lc, SSMState):
+        return SSMState(*(move(t, s) for t, s in zip(lc, sh)))
+    return {k: move(lc[k], sh[k]) for k in lc}
+
+
+def reference_cache(cache: list, cfg: ModelConfig,
+                    batch: int | None = None, leaf=to_host) -> dict:
     """The port's per-layer cache as the reference's tree of numpy arrays
     (the inverse of ``cache``; ``SSMState``s as the port's named tuple,
-    which has the reference's fields)."""
+    which has the reference's fields).  On a mesh the slices are gathered:
+    ``batch`` is then the whole batch.  ``leaf`` maps each stacked tensor
+    (to numpy by default)."""
     period = len(cfg.period)
     slots: dict = {}
     for i, lc in enumerate(cache):
+        lc = _cache_layout(lc, cfg, i, batch, coll.gather)
         slots.setdefault(f"layer{i % period}", []).append(lc)
-    stack = lambda xs: to_host(torch.stack([x.detach() for x in xs]))
+    stack = lambda xs: leaf(torch.stack([x.detach() for x in xs]))
     tree = {}
     for slot, lcs in slots.items():
         if isinstance(lcs[0], SSMState):

@@ -4,7 +4,8 @@ world (``repro/launch/mesh.py``, the same shapes and axis names).
 Every builder is a function and needs an initialized process group; each
 raises where the world does not fit its shape, as ``jax.make_mesh`` does
 for a device count that does not.  Axis semantics: ``parallel.ctx``.
-``device`` is this rank's device (default: its card).
+``device`` is this rank's device (default: its card); ``backend`` the
+mesh's groups' (default: the world's).
 """
 from __future__ import annotations
 
@@ -13,26 +14,29 @@ import torch.distributed as dist
 from repro_torch.parallel.ctx import Mesh
 
 
-def make_production_mesh(*, multi_pod: bool = False, device=None) -> Mesh:
+def make_production_mesh(*, multi_pod: bool = False, device=None,
+                         backend=None) -> Mesh:
     """Single pod ``(16, 16)`` = 256 ranks (data, model); multi-pod
     ``(2, 16, 16)`` = 512 ranks (pod, data, model)."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return Mesh(shape, axes, device)
+    return Mesh(shape, axes, device, backend)
 
 
 def make_debug_mesh(n_data: int = 2, n_model: int = 2, pods: int = 0,
-                    device=None) -> Mesh:
+                    device=None, backend=None) -> Mesh:
     """Small fixed-shape mesh for tests: ``(n_data, n_model)``, with a
     leading ``pod`` axis of ``pods`` when ``pods >= 1``."""
     if pods:
-        return Mesh((pods, n_data, n_model), ("pod", "data", "model"), device)
-    return Mesh((n_data, n_model), ("data", "model"), device)
+        return Mesh((pods, n_data, n_model), ("pod", "data", "model"),
+                    device, backend)
+    return Mesh((n_data, n_model), ("data", "model"), device, backend)
 
 
-def make_host_mesh(device=None) -> Mesh:
+def make_host_mesh(device=None, backend=None) -> Mesh:
     """Every rank of the world as a ``1 × N`` (data, model) mesh."""
-    return Mesh((1, dist.get_world_size()), ("data", "model"), device)
+    return Mesh((1, dist.get_world_size()), ("data", "model"), device,
+                backend)
 
 
 def make_sweep_mesh(pods: int = 1, device=None) -> Mesh:

@@ -6,9 +6,17 @@ no hand-written backward either) on the ``"blocked"`` or ``"naive"``
 attention path, and updates the parameters with ``optim.apply_gradients``
 on the reference's tree (``convert.reference_tree``: layers stacked), so
 its optimizer state is the reference's leaf for leaf.  The parameters stay
-a ``Transformer`` updated in place.  The reference's sharding assembly
-(``resolve_tree``, ``batch_specs``, the ``abstract_*`` functions) belongs
-to the multi-device LM (ROADMAP Queue A item 7) and is not here.
+a ``Transformer`` updated in place.
+
+On a mesh (``parallel.ctx``) the parameters are this rank's slices
+(``convert.shard_params``), the optimizer state this rank's slices by
+``optim.opt_state_specs``, and the train step takes the whole batch:
+``models.model.lm_loss`` runs on this rank's dp rows and returns the mean
+over the whole batch, the gradients come out summed over the dp ranks
+only, and the update reduces across slices where it must.  The sharding
+assembly is the reference's: ``resolve_tree``, ``batch_specs``,
+``stacked_cache_specs`` and the ``abstract_*`` shapes (on the ``meta``
+device, PyTorch's ``eval_shape``).
 """
 from __future__ import annotations
 
@@ -18,9 +26,10 @@ import torch
 
 from repro_torch import convert as C
 from repro_torch import tree as T
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models import model as M
-from repro_torch.optim import OptConfig, apply_gradients
+from repro_torch.optim import OptConfig, apply_gradients, init_opt_state
+from repro_torch.parallel import ctx
 
 Tree = Any
 
@@ -82,10 +91,12 @@ def update_params(params: M.Transformer, grads: Tree, opt_state: Tree,
     """The step's optimizer half: ``optim.apply_gradients`` on the
     reference's tree of ``params``, written back into ``params`` in place;
     returns the new optimizer state."""
+    shardings = (resolve_tree(M.param_specs(cfg))
+                 if ctx.get_mesh() is not None else None)
     with torch.no_grad():
         new, opt_state = apply_gradients(
             C.reference_tree(params, cfg, leaf=lambda p: p.detach()),
-            grads, opt_state, step, opt_cfg)
+            grads, opt_state, step, opt_cfg, shardings)
         del grads
         C.load_reference_tree(params, new, cfg)
     return opt_state
@@ -121,8 +132,61 @@ def make_prefill_step(cfg: ModelConfig):
     return prefill_step
 
 
-def make_decode_step(cfg: ModelConfig):
+def make_decode_step(cfg: ModelConfig, seq_shard: bool = False):
     def decode_step(params, cache, batch):
         return M.decode_step(params, cache, batch["tokens"], batch["pos"],
-                             cfg)
+                             cfg, seq_shard=seq_shard)
     return decode_step
+
+
+# --------------------------- sharding assembly ------------------------------
+
+def resolve_tree(spec_tree: Tree):
+    """Logical spec tree -> ``Sharding`` tree on the active mesh (None
+    leaves with no mesh)."""
+    return ctx.map_specs(lambda s: ctx.named_sharding(tuple(s)), spec_tree)
+
+
+def batch_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
+    """Logical specs of the input batch of a shape cell (the reference's
+    ``batch_specs``): tokens over "dp"; a decode batch smaller than dp
+    whole."""
+    dp = ctx.axis_size("dp")
+    tok = ("dp", None, None) if cfg.frontend == "audio" else ("dp", None)
+    if shape.mode == "train":
+        s = {"tokens": tok, "targets": tok}
+    elif shape.mode == "prefill":
+        s = {"tokens": tok}
+    else:
+        btok = tok if shape.global_batch >= dp else (
+            (None, None, None) if cfg.frontend == "audio" else (None, None))
+        s = {"tokens": btok, "pos": (btok[0],)}
+    if cfg.frontend == "vision":
+        s["image_embeds"] = ("dp", None, None)
+    return s
+
+
+def abstract_params(cfg: ModelConfig) -> Tree:
+    """The reference's parameter tree as ``meta`` tensors: the shapes and
+    dtypes of ``jax.eval_shape(init_params)``, nothing allocated."""
+    with ctx.use_mesh(None):
+        return C.reference_tree(M.skeleton(cfg, "meta"), cfg)
+
+
+def abstract_opt_state(cfg: ModelConfig, opt_cfg: OptConfig) -> Tree:
+    return init_opt_state(abstract_params(cfg), opt_cfg)
+
+
+def abstract_cache(cfg: ModelConfig, batch: int, max_len: int) -> dict:
+    """The reference's decode cache tree (``init_cache``: every leaf
+    stacked over periods) as ``meta`` tensors."""
+    with ctx.use_mesh(None):
+        return C.reference_cache(
+            M.init_cache(cfg, batch, max_len, device="meta"), cfg,
+            leaf=lambda t: t)
+
+
+def stacked_cache_specs(cfg: ModelConfig, batch: int) -> dict:
+    """Cache logical specs with the leading period-stack dim prepended."""
+    return ctx.map_specs(lambda s: (None,) + tuple(s),
+                         M.cache_specs(cfg, batch))

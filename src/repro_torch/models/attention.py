@@ -12,9 +12,11 @@ included (full attention, Sq != Skv), and raises under autograd (the
 kernel has no backward pass) and where the reference's kernel asserts
 (each length a multiple of ``min(128, length)``: the full-size vision
 model's 1600 image tokens are not).  Self-attention decode uses a cache
-local to the device under every ``attn_impl``, as the reference does; the
-sequence-sharded cache of the reference waits for multi-GPU support
-(ROADMAP Queue A item 7).
+local to the device under every ``attn_impl``, as the reference does, or,
+on a mesh, a cache whose sequence is split over the dp axes
+(``decode_self_attention(seq_axes=...)``, the reference's flash-decoding
+under ``shard_map``): each rank attends to its rows, only the owner of the
+new position writes it, and the partial softmaxes merge by log-sum-exp.
 """
 from __future__ import annotations
 
@@ -25,6 +27,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models.layers import (apply_rope, dense_init, matmul, param,
                                        rms_norm, rope_angles)
+from repro_torch.parallel import collectives as coll
+from repro_torch.parallel import ctx
 
 NEG_INF = -1e30
 
@@ -57,6 +61,14 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig, device,
     p.norm.fill_(1.0)
     if cross:
         p.gate.zero_()
+    return p
+
+
+def attention_specs(cfg: ModelConfig, cross: bool = False) -> dict:
+    p = {"wq": ("fsdp", "tp"), "wk": ("fsdp", "tp"), "wv": ("fsdp", "tp"),
+         "wo": ("tp", "fsdp"), "norm": (None,)}
+    if cross:
+        p["gate"] = ()
     return p
 
 
@@ -225,12 +237,23 @@ def cross_attention(params: Attention, x: torch.Tensor,
 
 def decode_self_attention(params: Attention, x: torch.Tensor,
                           k_cache: torch.Tensor, v_cache: torch.Tensor,
-                          pos: torch.Tensor, cfg: ModelConfig):
+                          pos: torch.Tensor, cfg: ModelConfig,
+                          seq_axes: tuple | None = None):
     """One-token decode step against a KV cache.
 
     x: (B, 1, D); caches (B, S_max, Hkv, hd); pos: (B,) current lengths.
     The new token's k/v are written into the caches in place (saving a
     copy of the whole cache per step); returns (x + out, k_cache, v_cache).
+
+    ``seq_axes``: the active mesh's axes over which the caches' sequence is
+    split (this rank holds rows ``[i · S_local, (i + 1) · S_local)``, ``i``
+    its row-major coordinate over them); x and pos are the same on every
+    rank.  The rank that owns a position writes the token there, and the
+    ranks' partial softmax statistics merge by log-sum-exp
+    (``_partial_decode_attn``; max, then sums of l·w and o·w).  ``()`` is
+    the one-shard case: the same arithmetic over the whole cache, no
+    collective (the ordinary path rounds q and the softmax weights to the
+    cache's dtype, as the reference's does; this one keeps them float32).
     """
     B = x.shape[0]
     hd = cfg.hd
@@ -244,11 +267,15 @@ def decode_self_attention(params: Attention, x: torch.Tensor,
     q = apply_rope(q, sin, cos)
     k_new = apply_rope(k_new, sin, cos)
     rows = torch.arange(B, device=x.device)
-    k_cache[rows, pos] = k_new[:, 0].to(k_cache.dtype)
-    v_cache[rows, pos] = v_new[:, 0].to(v_cache.dtype)
-    valid = (torch.arange(k_cache.shape[1], device=x.device)[None, :]
-             <= pos[:, None])                                 # (B, S)
-    out = _masked_decode_attn(q, k_cache, v_cache, valid, cfg)
+    if seq_axes is None:
+        k_cache[rows, pos] = k_new[:, 0].to(k_cache.dtype)
+        v_cache[rows, pos] = v_new[:, 0].to(v_cache.dtype)
+        valid = (torch.arange(k_cache.shape[1], device=x.device)[None, :]
+                 <= pos[:, None])                             # (B, S)
+        out = _masked_decode_attn(q, k_cache, v_cache, valid, cfg)
+    else:
+        out = _seq_split_decode_attn(q, k_new, v_new, k_cache, v_cache, pos,
+                                     cfg, seq_axes).to(x.dtype)
     out = matmul(out.reshape(B, 1, cfg.n_heads * hd),
                  params.wo.to(h.dtype), cfg)
     return x + out, k_cache, v_cache
@@ -269,3 +296,48 @@ def _masked_decode_attn(q, k, v, valid, cfg: ModelConfig) -> torch.Tensor:
     out = torch.einsum("bhgqk,bkhd->bqhgd",
                        p.to(v.dtype).to(torch.float32), v.to(torch.float32))
     return out.reshape(B, 1, H, hd).to(q.dtype)
+
+
+def _partial_decode_attn(q, k, v, valid, cfg: ModelConfig):
+    """Partial softmax statistics over this rank's cache rows: q (B, 1, H,
+    hd), k/v (B, S, Hkv, hd), valid (B, S) -> (m (B, H, 1), l (B, H, 1),
+    unnormalized o (B, H, 1, hd)), float32 (the reference's
+    ``_partial_decode_attn``; grouped heads, no repeated cache)."""
+    B, _, H, hd = q.shape
+    Hkv = k.shape[2]
+    qg = q.reshape(B, 1, Hkv, H // Hkv, hd).to(torch.float32)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg,
+                     k.to(torch.float32)) * (cfg.hd ** -0.5)
+    s = torch.where(valid[:, None, None, None, :], s, NEG_INF)
+    m = s.amax(dim=-1)                                  # (B, Hkv, g, 1)
+    p = torch.exp(s - m[..., None])
+    l = p.sum(dim=-1)
+    o = torch.einsum("bhgqk,bkhd->bhgqd", p, v.to(torch.float32))
+    return (m.reshape(B, H, 1), l.reshape(B, H, 1),
+            o.reshape(B, H, 1, hd))
+
+
+def _seq_split_decode_attn(q, k_new, v_new, k_cache, v_cache, pos,
+                           cfg: ModelConfig, seq_axes: tuple):
+    """Attention of one token to a cache whose sequence is split over
+    ``seq_axes`` -> (B, 1, H, hd) float32; writes the new k/v in place on
+    the rank that owns ``pos``."""
+    mesh = ctx.get_mesh()
+    B, S_local = k_cache.shape[:2]
+    dev = q.device
+    lo = mesh.index(seq_axes) * S_local if seq_axes else 0
+    local = pos - lo
+    own = (local >= 0) & (local < S_local)
+    rows = torch.arange(B, device=dev)[own]
+    k_cache[rows, local[own]] = k_new[own, 0].to(k_cache.dtype)
+    v_cache[rows, local[own]] = v_new[own, 0].to(v_cache.dtype)
+    gpos = torch.arange(S_local, device=dev) + lo
+    valid = gpos[None, :] <= pos[:, None]
+    m, l, o = _partial_decode_attn(q, k_cache, v_cache, valid, cfg)
+    if seq_axes:
+        m_glob = coll.all_reduce_raw(m, mesh, seq_axes, "max")
+        w = torch.exp(m - m_glob)
+        l = coll.all_reduce_raw(l * w, mesh, seq_axes)
+        o = coll.all_reduce_raw(o * w[..., None], mesh, seq_axes)
+    out = o / torch.clamp_min(l, 1e-30)[..., None]            # (B, H, 1, hd)
+    return out.transpose(1, 2)

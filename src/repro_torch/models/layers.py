@@ -21,6 +21,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.parallel.collectives import materialize
 
 
 def param(shape, dtype: torch.dtype, device) -> nn.Parameter:
@@ -103,6 +104,21 @@ class Embed(nn.Module):
         self.tokens = param(shape, cfg.pdtype(), device)
 
 
+def embed_specs(cfg: ModelConfig) -> dict:
+    """The table's logical spec (``repro/models/layers.py::embed_specs``):
+    the vocab over "tp" when it divides, else the vocab over "fsdp" (when
+    that divides) and d_model over "tp"."""
+    from repro_torch.parallel import ctx
+    tp = max(1, ctx.axis_size("tp"))
+    dp = max(1, ctx.axis_size("dp"))
+    v_tp = "tp" if cfg.vocab % tp == 0 else None
+    v_fs = "fsdp" if cfg.vocab % dp == 0 else None
+    if cfg.frontend == "audio":
+        return {"tokens": (None, "tp", None) if v_tp
+                else (None, v_fs, "tp")}
+    return {"tokens": ("tp", None) if v_tp else (v_fs, "tp")}
+
+
 def init_embed(gen: torch.Generator, cfg: ModelConfig, device) -> Embed:
     e = Embed(cfg, device)
     dense_init(gen, e.tokens, scale=0.02)
@@ -114,7 +130,7 @@ def embed_tokens(params: Embed, tokens: torch.Tensor, cfg: ModelConfig
     """tokens (B, S) -> (B, S, d_model) in the activation dtype.  Audio
     tokens (B, S, C): the C codebooks' embeddings summed in order c = 0 ..
     C-1 in the table's dtype, then cast, as the reference sums them."""
-    tok = params.tokens
+    tok = materialize(params.tokens)
     if cfg.frontend == "audio":
         out = tok[0][tokens[..., 0]]
         for c in range(1, cfg.n_codebooks):
@@ -138,6 +154,13 @@ class MLP(nn.Module):
         self.w_up = param((d, f), dt, device)
         self.w_down = param((f, d), dt, device)
         self.norm = param((d,), dt, device)
+
+
+def mlp_specs(cfg: ModelConfig) -> dict:
+    p = {"w_up": ("fsdp", "tp"), "w_down": ("tp", "fsdp"), "norm": (None,)}
+    if cfg.act == "swiglu":
+        p["w_gate"] = ("fsdp", "tp")
+    return p
 
 
 def init_mlp(gen: torch.Generator, cfg: ModelConfig, device) -> MLP:

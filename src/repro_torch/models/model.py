@@ -25,8 +25,21 @@ the same of (B, n_img_tokens, Hkv, hd) for cross-attention (filled by the
 prefill from the embeddings, read and left unchanged by decode), an
 ``ssm.SSMState`` for SSM layers; ``decode_step`` updates the list in
 place.  ``prefill`` and ``decode_step`` build no autograd graph.
+
+On a mesh (``parallel.ctx``; its docstring says how the compute is laid
+out) the parameters are this rank's slices (``convert.shard_params``,
+by ``param_specs``), the caches this rank's slices by ``cache_specs``,
+and every entry point takes the whole batch on every rank and returns
+whole logits: it runs on this rank's dp rows when the batch divides over
+dp.  MoE layers run expert-parallel (``moe.moe_ffn_ep``) where the
+"model" axis divides the experts (``_use_ep``), else as the function of
+the whole batch.  ``decode_step(seq_shard=True)`` attends to a cache
+whose sequence is split over the dp axes ("sp").
 """
 from __future__ import annotations
+
+import contextlib
+import types
 
 import torch
 from torch import nn
@@ -36,9 +49,11 @@ from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.models import attention as A
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
-from repro_torch.models.layers import (MLP, Embed, dense_init, embed_tokens,
-                                       init_embed, init_mlp, mlp, param,
-                                       rms_norm)
+from repro_torch.models.layers import (MLP, Embed, dense_init, embed_specs,
+                                       embed_tokens, init_embed, init_mlp,
+                                       mlp, mlp_specs, param, rms_norm)
+from repro_torch.parallel import collectives as coll
+from repro_torch.parallel import ctx
 
 
 class Layer(nn.Module):
@@ -114,13 +129,166 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> Transformer:
     return params
 
 
+# ------------------------------ sharding -------------------------------------
+
+def _period_specs(cfg: ModelConfig) -> dict:
+    p = {}
+    for i, spec in enumerate(cfg.period):
+        if spec.kind == "ssm":
+            mix = SSM.ssm_specs(cfg)
+        else:
+            mix = A.attention_specs(cfg, cross=spec.cross_attn)
+        lp = {"mixer": mix}
+        if spec.has_ffn:
+            lp["ffn"] = MOE.moe_specs(cfg) if spec.moe else mlp_specs(cfg)
+        p[f"layer{i}"] = lp
+    return p
+
+
+def param_specs(cfg: ModelConfig) -> dict:
+    """The logical specs of the reference's parameter tree
+    (``repro.models.model.param_specs``: ``layers.layer{j}`` stacked over
+    periods, so each leaf's spec starts with None); ``convert`` maps them
+    onto the port's parameters."""
+    layer = ctx.map_specs(lambda s: (None,) + tuple(s), _period_specs(cfg))
+    specs = {"embed": embed_specs(cfg), "layers": layer,
+             "final_norm": (None,)}
+    if cfg.frontend == "audio":
+        specs["lm_head"] = (None, None, "tp")
+    elif not cfg.tie_embeddings:
+        specs["lm_head"] = (None, "tp")
+    return specs
+
+
+def cache_specs(cfg: ModelConfig, batch: int) -> dict:
+    """Logical specs of one period's caches (``repro.models.model.
+    cache_specs``): the batch over "dp"; kv heads over "tp" when that
+    divides, else head_dim, else nothing; when the batch is smaller than
+    dp, a self-attention cache's sequence over "sp" (heads whole)."""
+    seq_shard = batch < ctx.axis_size("dp")
+    tp = ctx.axis_size("tp")
+    if cfg.n_kv_heads % max(tp, 1) == 0:
+        kv_spec = ("dp", None, "tp", None)
+    elif cfg.hd % max(tp, 1) == 0:
+        kv_spec = ("dp", None, None, "tp")
+    else:
+        kv_spec = ("dp", None, None, None)
+    c = {}
+    for i, spec in enumerate(cfg.period):
+        if spec.kind == "ssm":
+            c[f"layer{i}"] = SSM.SSMState(conv_x=(None, None, "tp"),
+                                          conv_bc=(None, None, None),
+                                          ssm=(None, "tp", None, None))
+        elif spec.cross_attn or not seq_shard:
+            c[f"layer{i}"] = {"k": kv_spec, "v": kv_spec}
+        else:
+            c[f"layer{i}"] = {"k": (None, "sp", None, None),
+                              "v": (None, "sp", None, None)}
+    return c
+
+
+def _use_ep(cfg: ModelConfig) -> bool:
+    """Expert parallelism: the active mesh's "model" axis is larger than 1
+    and divides the experts."""
+    mesh = ctx.get_mesh()
+    return (mesh is not None and "model" in mesh.axis_names
+            and mesh.shape["model"] > 1
+            and cfg.moe.n_experts % mesh.shape["model"] == 0)
+
+
+def _dp_split(batch: int) -> bool:
+    """Whether a batch of ``batch`` rows runs split over the active mesh's
+    dp axes: when it has at least one row a dp rank (it must divide)."""
+    dp = ctx.axis_size("dp")
+    if dp <= 1 or batch < dp:
+        return False
+    if batch % dp:
+        raise ValueError(f"a batch of {batch} does not split over {dp} "
+                         f"dp ranks")
+    return True
+
+
+def _rows(t: torch.Tensor | None, split: bool):
+    """This rank's dp rows of a whole-batch tensor (the batch split at
+    entry, where the reference constrains activations to "dp")."""
+    if t is None or not split:
+        return t
+    return ctx.shard(t, "dp")
+
+
+def _dp(mesh) -> tuple:
+    return coll.live(mesh, ctx.axes_of("dp"))
+
+
+def _all_rows(t: torch.Tensor, split: bool) -> torch.Tensor:
+    """Every dp rank's rows of ``t``, in order (differentiable)."""
+    if not split:
+        return t
+    mesh = ctx.get_mesh()
+    return coll.all_gather(t, mesh, _dp(mesh), 0)
+
+
+def _entry(params):
+    """The parameters an entry point reads whole (embedding, final norm,
+    head), gathered once; the layers are gathered as they run."""
+    if ctx.get_mesh() is None:
+        return params
+    ns = types.SimpleNamespace(embed=coll.whole(params.embed),
+                               layers=params.layers,
+                               final_norm=coll.materialize(params.final_norm))
+    if hasattr(params, "lm_head"):
+        ns.lm_head = coll.materialize(params.lm_head)
+    return ns
+
+
+def layer_cache_shardings(cfg: ModelConfig, batch: int, i: int):
+    """Layer ``i``'s cache layout at rest on the active mesh, for a batch of
+    ``batch`` rows: a ``{"k", "v"}`` dict or an ``SSMState`` of
+    ``Sharding``s."""
+    tree = cache_specs(cfg, batch)[f"layer{i % len(cfg.period)}"]
+    return ctx.map_specs(ctx.named_sharding, tree)
+
+
+def _cache_map(fn, lc, shardings=None):
+    """``fn(leaf, its sharding or None)`` over one layer's cache."""
+    if isinstance(lc, SSM.SSMState):
+        return SSM.SSMState(*(fn(t, None if shardings is None else s)
+                              for t, s in zip(lc, shardings or lc)))
+    return {k: fn(lc[k], None if shardings is None else shardings[k])
+            for k in lc}
+
+
+def _cache_moved(lc, cfg: ModelConfig, batch: int, i: int, split: bool,
+                 to_rest: bool):
+    """Layer ``i``'s cache between its layout at rest and the compute's
+    (every dim whole but the batch, split over dp when ``split``)."""
+    mesh = ctx.get_mesh()
+    if mesh is None:
+        return lc
+    compute = ctx.Sharding(mesh, (ctx.resolve_axis("dp"),) if split else ())
+    return _cache_map(
+        lambda t, rest: (coll.reshard(t, compute, rest) if to_rest
+                         else coll.reshard(t, rest, compute)),
+        lc, layer_cache_shardings(cfg, batch, i))
+
+
+@contextlib.contextmanager
+def _batch(batch: int):
+    split = ctx.get_mesh() is not None and _dp_split(batch)
+    with ctx.split_batch(split):
+        yield split
+
+
+# ------------------------------- blocks -------------------------------------
+
 def _mixer_block(spec: LayerSpec, lp: Layer, x: torch.Tensor,
                  cfg: ModelConfig, image_embeds=None) -> torch.Tensor:
+    mixer = coll.whole(lp.mixer)
     if spec.kind == "ssm":
-        return SSM.ssm_forward(lp.mixer, x, cfg)[0]
+        return SSM.ssm_forward(mixer, x, cfg)[0]
     if spec.cross_attn:
-        return A.cross_attention(lp.mixer, x, image_embeds, cfg)[0]
-    return A.self_attention(lp.mixer, x, cfg)[0]
+        return A.cross_attention(mixer, x, image_embeds, cfg)[0]
+    return A.self_attention(mixer, x, cfg)[0]
 
 
 def _ffn_block(spec: LayerSpec, lp: Layer, x: torch.Tensor,
@@ -129,8 +297,20 @@ def _ffn_block(spec: LayerSpec, lp: Layer, x: torch.Tensor,
     if not spec.has_ffn:
         return x, 0.0
     if spec.moe:
-        return MOE.moe_ffn(lp.ffn, x, cfg, full_capacity=full_capacity)
-    return mlp(lp.ffn, x, cfg), 0.0
+        if _use_ep(cfg):
+            return MOE.moe_ffn_ep(coll.whole(lp.ffn, keep=("model",)), x,
+                                  cfg, full_capacity=full_capacity)
+        ffn = coll.whole(lp.ffn)
+        if ctx.batch_split():
+            # the function of the whole batch (its capacity counts every
+            # token), as the reference's moe_ffn under GSPMD
+            mesh = ctx.get_mesh()
+            dp = _dp(mesh)
+            y, aux = MOE.moe_ffn(ffn, coll.all_gather(x, mesh, dp, 0), cfg,
+                                 full_capacity=full_capacity)
+            return y.chunk(mesh.size(dp), 0)[mesh.index(dp)], aux
+        return MOE.moe_ffn(ffn, x, cfg, full_capacity=full_capacity)
+    return mlp(coll.whole(lp.ffn), x, cfg), 0.0
 
 
 def _layer(spec: LayerSpec, lp: Layer, x: torch.Tensor, cfg: ModelConfig,
@@ -170,7 +350,7 @@ def backbone(params: Transformer, x: torch.Tensor, cfg: ModelConfig,
             x = _remat(_mixer_block, spec, lp, x, cfg, image_embeds)
             x, a = _remat(_ffn_block, spec, lp, x, cfg)
         aux = aux + a
-    return rms_norm(x, params.final_norm, cfg.norm_eps), aux
+    return rms_norm(x, coll.materialize(params.final_norm), cfg.norm_eps), aux
 
 
 def logits_from_hidden(params: Transformer, x: torch.Tensor,
@@ -180,19 +360,30 @@ def logits_from_hidden(params: Transformer, x: torch.Tensor,
     plain product under ``approx_matmul`` too, as the reference's
     einsum)."""
     if cfg.frontend == "audio":
-        return torch.einsum("bsd,cdv->bscv", x, params.lm_head.to(x.dtype))
+        return torch.einsum("bsd,cdv->bscv", x,
+                            coll.materialize(params.lm_head).to(x.dtype))
     if cfg.tie_embeddings:
-        return x @ params.embed.tokens.to(x.dtype).T
-    return x @ params.lm_head.to(x.dtype)
+        return x @ coll.materialize(params.embed.tokens).to(x.dtype).T
+    return x @ coll.materialize(params.lm_head).to(x.dtype)
 
 
 def forward_train(params: Transformer, tokens: torch.Tensor,
                   cfg: ModelConfig, image_embeds=None):
     """tokens (B, S) -> (full-sequence logits (B, S, vocab), MoE aux
-    loss); audio tokens (B, S, C) -> logits (B, S, C, vocab)."""
-    x, aux = backbone(params, embed_tokens(params.embed, tokens, cfg), cfg,
-                      image_embeds)
-    return logits_from_hidden(params, x, cfg), aux
+    loss); audio tokens (B, S, C) -> logits (B, S, C, vocab).  On a mesh
+    with the batch split, the aux loss is the dp ranks' mean: the function
+    the reference's gradient is taken of, though it reports its first dp
+    row's aux (ROADMAP, facts about the reference)."""
+    with _batch(tokens.shape[0]) as split:
+        p = _entry(params)
+        x, aux = backbone(p, embed_tokens(p.embed, _rows(tokens, split),
+                                          cfg), cfg,
+                          _rows(image_embeds, split))
+        logits = _all_rows(logits_from_hidden(p, x, cfg), split)
+        if split and isinstance(aux, torch.Tensor):
+            mesh = ctx.get_mesh()
+            aux = coll.all_reduce(aux, mesh, _dp(mesh)) / mesh.size(_dp(mesh))
+    return logits, aux
 
 
 def _ce_sum(params: Transformer, x: torch.Tensor, targets: torch.Tensor,
@@ -207,14 +398,31 @@ def lm_loss(params: Transformer, tokens: torch.Tensor,
             targets: torch.Tensor, cfg: ModelConfig,
             image_embeds=None) -> torch.Tensor:
     """Mean next-token cross-entropy (float32; audio: over every position
-    and codebook, never chunked) + 0.01 · the MoE aux loss."""
-    x, aux = backbone(params, embed_tokens(params.embed, tokens, cfg), cfg,
-                      image_embeds)
-    if cfg.loss_vocab_chunk and cfg.frontend != "audio":
-        ce = _chunked_ce(params, x, targets, cfg)
-    else:
-        ce = _ce_sum(params, x, targets, cfg) / targets.numel()
-    return ce + 0.01 * aux
+    and codebook, never chunked) + 0.01 · the MoE aux loss.
+
+    On a mesh with the batch split, each dp rank adds its rows' share
+    (their CE sum over the whole batch's count, and 0.01 · aux / dp) and
+    the shares are summed over the dp ranks; the gradient of a rank's
+    share flows back through its own rows only (the parameters' gathers
+    sum it over dp)."""
+    with _batch(tokens.shape[0]) as split:
+        p = _entry(params)
+        tok, tgt = _rows(tokens, split), _rows(targets, split)
+        x, aux = backbone(p, embed_tokens(p.embed, tok, cfg), cfg,
+                          _rows(image_embeds, split))
+        if not split:
+            if cfg.loss_vocab_chunk and cfg.frontend != "audio":
+                ce = _chunked_ce(p, x, tgt, cfg)
+            else:
+                ce = _ce_sum(p, x, tgt, cfg) / tgt.numel()
+            return ce + 0.01 * aux
+        mesh = ctx.get_mesh()
+        n = mesh.size(_dp(mesh))
+        if cfg.loss_vocab_chunk and cfg.frontend != "audio":
+            ce = _chunked_ce(p, x, tgt, cfg) / n
+        else:
+            ce = _ce_sum(p, x, tgt, cfg) / targets.numel()
+        return coll.all_reduce(ce + 0.01 * aux / n, mesh, _dp(mesh))
 
 
 def _chunked_ce(params: Transformer, x: torch.Tensor, targets: torch.Tensor,
@@ -243,22 +451,28 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     """Zeroed per-layer caches: a ``{"k", "v"}`` dict of (batch, max_len,
     Hkv, hd) for attention layers and of (batch, n_img_tokens, Hkv, hd)
     for cross-attention layers, a zeroed ``SSMState`` (conv tails in
-    ``dtype``, the state in float32) for SSM layers."""
+    ``dtype``, the state in float32) for SSM layers.  On a mesh, this
+    rank's slices of them (``cache_specs``)."""
     dtype = dtype or cfg.adtype()
 
     def kv(length):
         shape = (batch, length, cfg.n_kv_heads, cfg.hd)
-        return {"k": torch.zeros(shape, dtype=dtype, device=device),
-                "v": torch.zeros(shape, dtype=dtype, device=device)}
+        return {"k": torch.empty(shape, dtype=dtype, device="meta"),
+                "v": torch.empty(shape, dtype=dtype, device="meta")}
 
     caches = []
     for i in range(cfg.n_layers):
         spec = layer_spec(cfg, i)
         if spec.kind == "ssm":
-            caches.append(SSM.init_ssm_state(cfg, batch, dtype, device))
+            lc = SSM.init_ssm_state(cfg, batch, dtype, "meta")
         else:
-            caches.append(kv(cfg.n_img_tokens if spec.cross_attn
-                             else max_len))
+            lc = kv(cfg.n_img_tokens if spec.cross_attn else max_len)
+        shardings = (layer_cache_shardings(cfg, batch, i)
+                     if ctx.get_mesh() is not None else None)
+        caches.append(_cache_map(
+            lambda t, s: torch.zeros(s.shard_shape(t.shape) if s else
+                                     t.shape, dtype=t.dtype, device=device),
+            lc, shardings))
     return caches
 
 
@@ -269,48 +483,81 @@ def prefill(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig,
     padded to ``max_len``, cross layers' K/V of ``image_embeds``, SSM
     states after the prompt).  The MoE layers run at ``capacity_factor``,
     as the reference's prefill."""
-    S = tokens.shape[1]
+    B, S = tokens.shape[:2]
     pad = (max_len or S) - S
-    x = embed_tokens(params.embed, tokens, cfg)
-    cache = []
-    for i, lp in enumerate(params.layers):
-        spec = layer_spec(cfg, i)
-        if spec.kind == "ssm":
-            x, st = SSM.ssm_forward(lp.mixer, x, cfg, return_state=True)
-            cache.append(st)
-        elif spec.cross_attn:
-            x, (k, v) = A.cross_attention(lp.mixer, x, image_embeds, cfg)
-            cache.append({"k": k, "v": v})
-        else:
-            x, (k, v) = A.self_attention(lp.mixer, x, cfg)
-            if pad > 0:
-                k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
-                v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
-            cache.append({"k": k, "v": v})
-        x, _ = _ffn_block(spec, lp, x, cfg)
-    x = rms_norm(x, params.final_norm, cfg.norm_eps)
-    return logits_from_hidden(params, x[:, -1:], cfg), cache
+    with _batch(B) as split:
+        p = _entry(params)
+        x = embed_tokens(p.embed, _rows(tokens, split), cfg)
+        img = _rows(image_embeds, split)
+        cache = []
+        for i, lp in enumerate(params.layers):
+            spec = layer_spec(cfg, i)
+            mixer = coll.whole(lp.mixer)
+            if spec.kind == "ssm":
+                x, lc = SSM.ssm_forward(mixer, x, cfg, return_state=True)
+            elif spec.cross_attn:
+                x, (k, v) = A.cross_attention(mixer, x, img, cfg)
+                lc = {"k": k, "v": v}
+            else:
+                x, (k, v) = A.self_attention(mixer, x, cfg)
+                if pad > 0:
+                    k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+                    v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+                lc = {"k": k, "v": v}
+            cache.append(_cache_moved(lc, cfg, B, i, split, to_rest=True))
+            x, _ = _ffn_block(spec, lp, x, cfg)
+        x = rms_norm(x, p.final_norm, cfg.norm_eps)
+        logits = _all_rows(logits_from_hidden(p, x[:, -1:], cfg), split)
+    return logits, cache
 
 
 @torch.no_grad()
 def decode_step(params: Transformer, cache: list, tokens: torch.Tensor,
-                pos: torch.Tensor, cfg: ModelConfig):
+                pos: torch.Tensor, cfg: ModelConfig,
+                seq_shard: bool = False):
     """One decode step: tokens (B, 1) (audio (B, 1, C)), pos (B,) ->
     (logits (B, 1, vocab) (audio (B, 1, C, vocab)), cache updated in
     place; the cross layers' caches are read, not written).  The MoE
-    layers run at full capacity (no drops), as the reference's decode."""
-    x = embed_tokens(params.embed, tokens, cfg)
-    for i, lp in enumerate(params.layers):
-        spec = layer_spec(cfg, i)
-        lc = cache[i]
-        if spec.kind == "ssm":
-            x, cache[i] = SSM.ssm_decode_step(lp.mixer, x, lc, cfg)
-        elif spec.cross_attn:
-            x, _ = A.cross_attention(lp.mixer, x, None, cfg,
-                                     kv_cache=(lc["k"], lc["v"]))
-        else:
-            x, lc["k"], lc["v"] = A.decode_self_attention(
-                lp.mixer, x, lc["k"], lc["v"], pos, cfg)
-        x, _ = _ffn_block(spec, lp, x, cfg, full_capacity=True)
-    x = rms_norm(x, params.final_norm, cfg.norm_eps)
-    return logits_from_hidden(params, x, cfg), cache
+    layers run at full capacity (no drops), as the reference's decode.
+
+    ``seq_shard`` (the reference's long-context path): on a mesh, the
+    self-attention caches' sequence is split over "sp" (``cache_specs``
+    of a batch smaller than dp) and every rank runs the whole batch; with
+    no mesh it is the ordinary decode."""
+    B = tokens.shape[0]
+    mesh = ctx.get_mesh()
+    seq = None
+    if seq_shard and mesh is not None:
+        if B >= ctx.axis_size("dp"):
+            raise ValueError(f"the sequence-split decode takes a batch "
+                             f"smaller than dp ({ctx.axis_size('dp')}), "
+                             f"got {B}")
+        seq = coll.live(mesh, ctx.axes_of("sp"))
+    with _batch(B) as split:
+        p = _entry(params)
+        x = embed_tokens(p.embed, _rows(tokens, split), cfg)
+        pos = _rows(pos, split)
+        for i, lp in enumerate(params.layers):
+            spec = layer_spec(cfg, i)
+            mixer = coll.whole(lp.mixer)
+            if spec.kind != "ssm" and not spec.cross_attn and seq is not None:
+                lc = cache[i]
+                x, lc["k"], lc["v"] = A.decode_self_attention(
+                    mixer, x, lc["k"], lc["v"], pos, cfg, seq_axes=seq)
+            else:
+                lc = _cache_moved(cache[i], cfg, B, i, split, to_rest=False)
+                if spec.kind == "ssm":
+                    x, lc = SSM.ssm_decode_step(mixer, x, lc, cfg)
+                elif spec.cross_attn:
+                    x, _ = A.cross_attention(mixer, x, None, cfg,
+                                             kv_cache=(lc["k"], lc["v"]))
+                else:
+                    x, lc["k"], lc["v"] = A.decode_self_attention(
+                        mixer, x, lc["k"], lc["v"], pos, cfg)
+                if not spec.cross_attn:
+                    cache[i] = _cache_moved(lc, cfg, B, i, split,
+                                            to_rest=True)
+            x, _ = _ffn_block(spec, lp, x, cfg, full_capacity=True)
+        x = rms_norm(x, p.final_norm, cfg.norm_eps)
+        logits = _all_rows(logits_from_hidden(p, x, cfg), split)
+    return logits, cache

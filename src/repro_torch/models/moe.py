@@ -26,9 +26,17 @@ The router and every float32 product here run in full float32 on the card
 (``layers.ieee_fp32``): TF32 would flip expert choices against the CPU.
 The expert products are plain ``torch.bmm``s, as the reference's are
 ``jnp.einsum``s (not the approximate multiplier).  The load-balancing aux
-loss ``E · Σ_e f_e · p̄_e`` is returned for the train step.  Expert
-parallelism (``moe_ffn_ep``) belongs to the multi-device LM (ROADMAP
-Queue A item 7).
+loss ``E · Σ_e f_e · p̄_e`` is returned for the train step.
+
+Expert parallelism (``moe_ffn_ep``, the reference's ``shard_map`` over the
+"model" axis): every "model" rank routes the same token block, computes
+only its ``E / n`` experts (the window ``[e_lo, e_lo + e_per)`` of
+``_moe_math``, whose combine adds only their contributions), and the
+ranks' partial outputs are summed in float32 and rounded once to the
+activation dtype; the aux loss is their mean.  The token block is this
+rank's dp rows when the batch is split, and the capacity then counts
+those rows alone, as in the reference: a dp-split EP is not the function
+of the whole batch.
 """
 from __future__ import annotations
 
@@ -38,6 +46,8 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import dense_init, ieee_fp32, param, rms_norm
+from repro_torch.parallel import collectives as coll
+from repro_torch.parallel import ctx
 
 
 class MoE(nn.Module):
@@ -68,6 +78,13 @@ def init_moe(gen: torch.Generator, cfg: ModelConfig, device) -> MoE:
         for e in range(w.shape[0]):
             dense_init(gen, w[e], scale=scale)
     return p
+
+
+def moe_specs(cfg: ModelConfig) -> dict:
+    """Experts over "tp" (expert parallelism), d_model over "fsdp"."""
+    return {"norm": (None,), "router": ("fsdp", None),
+            "w_gate": ("tp", "fsdp", None), "w_up": ("tp", "fsdp", None),
+            "w_down": ("tp", None, "fsdp")}
 
 
 def _route(h2: torch.Tensor, router: torch.Tensor, top_k: int):
@@ -123,19 +140,25 @@ def _capacity(T: int, cfg: ModelConfig, full: bool) -> int:
 
 
 def _moe_math(h2: torch.Tensor, params: MoE, cfg: ModelConfig,
-              capacity: int):
-    """Route -> dispatch -> experts -> combine for all E experts (the
-    reference's ``_moe_math_dyn`` at ``e_lo = 0``, ``e_per = E``)."""
+              capacity: int, e_lo: int = 0, e_per: int | None = None,
+              router: torch.Tensor | None = None):
+    """Route -> dispatch -> experts -> combine for the experts ``[e_lo,
+    e_lo + e_per)`` (all E by default), whose weights ``params`` holds
+    (the reference's ``_moe_math_dyn``): the assignments to other experts
+    add nothing.  ``router`` replaces ``params.router``."""
     m = cfg.moe
     E, K = m.n_experts, m.top_k
+    e_per = E if e_per is None else e_per
     T, D = h2.shape
     dev = h2.device
-    w, ids, aux = _route(h2, params.router, K)
+    w, ids, aux = _route(h2, params.router if router is None else router, K)
     order, buf_idx, keep = _dispatch_indices(ids, E, capacity)
     tok_idx = order // K
     # slot (e, c) holds expert e's c-th assignment in sorted order, if any
     sorted_e = ids.reshape(-1)[order].contiguous()
-    experts = torch.arange(E, device=dev)
+    keep = keep & (sorted_e >= e_lo) & (sorted_e < e_lo + e_per)
+    buf_idx = buf_idx - e_lo * capacity
+    experts = torch.arange(e_lo, e_lo + e_per, device=dev)
     start = torch.searchsorted(sorted_e, experts, side="left")
     count = torch.searchsorted(sorted_e, experts, side="right") - start
     c = torch.arange(capacity, device=dev)
@@ -143,10 +166,10 @@ def _moe_math(h2: torch.Tensor, params: MoE, cfg: ModelConfig,
     filled = (c[None, :] < count[:, None]).reshape(-1)
     src = torch.where(filled, src, 0)
     buf = h2[tok_idx[src]] * filled[:, None].to(h2.dtype)
-    out_buf = _expert_ffn(buf.reshape(E, capacity, D), params)
-    out_buf = torch.cat([out_buf.reshape(E * capacity, D),
+    out_buf = _expert_ffn(buf.reshape(e_per, capacity, D), params)
+    out_buf = torch.cat([out_buf.reshape(e_per * capacity, D),
                          torch.zeros((1, D), dtype=h2.dtype, device=dev)])
-    back = out_buf[torch.where(keep, buf_idx, E * capacity)]
+    back = out_buf[torch.where(keep, buf_idx, e_per * capacity)]
     wk = w.reshape(-1)[order] * keep.to(torch.float32)
     contrib = back * wk[:, None].to(h2.dtype)          # sorted assignments
     # each token's K assignments, in sorted (= ascending expert) order
@@ -169,3 +192,33 @@ def moe_ffn(params: MoE, x: torch.Tensor, cfg: ModelConfig,
                              _capacity(B * S, cfg, full_capacity))
     return x + out.reshape(B, S, d), aux
 
+
+
+def moe_ffn_ep(params, x: torch.Tensor, cfg: ModelConfig,
+               full_capacity: bool = False):
+    """The expert-parallel MoE FFN on the active mesh: ``params`` holds
+    this rank's ``E / n`` experts (the "model" axis split of
+    ``moe_specs``, ``n`` its size), the norm and the router whole; ``x``
+    is the token block (this rank's dp rows when the batch is split).
+    Returns (x + out, aux), the same on every "model" rank."""
+    mesh = ctx.get_mesh()
+    tp = coll.live(mesh, ("model",))
+    n = mesh.size(tp)
+    E = cfg.moe.n_experts
+    if E % n:
+        raise ValueError(f"{E} experts do not split over {n} model ranks")
+    e_per = E // n
+    B, S, d = x.shape
+    h = rms_norm(x, params.norm, cfg.norm_eps)
+    # each rank computes its own experts' part from the shared tokens and
+    # router: their gradients sum over the model ranks
+    h2 = coll.replicated(h.reshape(B * S, d), mesh, tp)
+    router = coll.replicated(params.router, mesh, tp)
+    with ieee_fp32():
+        out, aux = _moe_math(h2, params, cfg,
+                             _capacity(B * S, cfg, full_capacity),
+                             e_lo=mesh.index(tp) * e_per, e_per=e_per,
+                             router=router)
+    out = coll.all_reduce(out.to(torch.float32), mesh, tp).to(x.dtype)
+    aux = coll.all_reduce(aux, mesh, tp) / n
+    return x + out.reshape(B, S, d), aux

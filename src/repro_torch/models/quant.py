@@ -17,6 +17,14 @@ for tensors on the card, its plain version for tensors on the CPU.  The
 float32 operation order follows ``repro/models/quant.py`` so the CPU path
 matches the reference: same quantized operands and integer accumulator
 bit for bit, outputs within float32 rounding.
+
+The scale is one per tensor: over every row of ``x`` and the whole
+weight.  On a mesh whose batch is split over the dp axes
+(``parallel.ctx.batch_split``) the min and max of ``x`` are all-reduced
+over those axes before quantizing (the reference's GSPMD takes them over
+the global array), so a rank's rows quantize as in the unsharded run and
+its output rows are the unsharded ones bit for bit.  The weight arrives
+whole (``parallel.collectives.materialize``).
 """
 from __future__ import annotations
 
@@ -58,12 +66,20 @@ def get_multiplier_lut(device: torch.device | str = "cpu") -> torch.Tensor:
     return _TABLES[dev]
 
 
-def quantize_u8(x: torch.Tensor, axis=None):
+def quantize_u8(x: torch.Tensor, axis=None, over: tuple = ()):
     """Asymmetric uint8: (q uint8, scale, zero) with x ≈ scale·(q − zero).
-    Rounding is half-to-even, as ``jnp.round``."""
+    Rounding is half-to-even, as ``jnp.round``.  ``over``: axes of the
+    active mesh whose ranks hold the other parts of ``x`` (whole-tensor
+    scale only): the range is theirs together."""
     xf = x.to(torch.float32)
     if axis is None:
         lo, hi = xf.min(), xf.max()
+        if over:
+            from repro_torch.parallel import collectives as coll
+            from repro_torch.parallel import ctx
+            r = coll.all_reduce_raw(torch.stack([lo, -hi]).detach(),
+                                    ctx.get_mesh(), over, "min")
+            lo, hi = r[0], -r[1]
     else:
         lo = xf.amin(dim=axis, keepdim=True)
         hi = xf.amax(dim=axis, keepdim=True)
@@ -73,13 +89,28 @@ def quantize_u8(x: torch.Tensor, axis=None):
     return q, scale, zero
 
 
+def _dp_axes() -> tuple:
+    """The dp axes this rank's rows are split over (none unless the batch
+    is split on the active mesh)."""
+    from repro_torch.parallel import collectives as coll
+    from repro_torch.parallel import ctx
+    if not ctx.batch_split():
+        return ()
+    return coll.live(ctx.get_mesh(), ctx.axes_of("dp"))
+
+
 def approx_matmul(x: torch.Tensor, w: torch.Tensor,
                   lut: torch.Tensor | None = None) -> torch.Tensor:
     """x: (..., K) float; w: (K, N) float -> (..., N) in x's dtype, every
     product taken from the multiplier's LUT."""
     lut = get_multiplier_lut(x.device) if lut is None else lut
     lead, K = x.shape[:-1], x.shape[-1]
-    qx, sx, zx = quantize_u8(x.reshape(-1, K))
+    # off a split batch the call keeps the reference's signature, which
+    # substitutes of quantize_u8 (operand recorders in the tests and in
+    # chip_smoke.py) take
+    over = _dp_axes()
+    qx, sx, zx = (quantize_u8(x.reshape(-1, K), over=over) if over
+                  else quantize_u8(x.reshape(-1, K)))
     qw, sw, zw = quantize_u8(w)
     acc = kops.lut_matmul(qx, qw, lut).to(torch.float32)
     # exact zero-point correction: Σ(qx−zx)(qw−zw) = Σqx·qw − zw·Σqx −

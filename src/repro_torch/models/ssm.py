@@ -82,6 +82,18 @@ def init_ssm(gen: torch.Generator, cfg: ModelConfig, device) -> SSM:
     return p
 
 
+def ssm_specs(cfg: ModelConfig) -> dict:
+    """Heads and d_inner columns over "tp"; the B/C group projection and
+    its conv replicated (the reference's ``ssm_specs``)."""
+    return {
+        "norm": (None,), "w_z": ("fsdp", "tp"), "w_x": ("fsdp", "tp"),
+        "w_bc": ("fsdp", None), "w_dt": ("fsdp", "tp"), "dt_bias": ("tp",),
+        "a_log": ("tp",), "d_skip": ("tp",),
+        "conv_x_w": (None, "tp"), "conv_bc_w": (None, None),
+        "gate_norm": ("tp",), "w_out": ("tp", "fsdp"),
+    }
+
+
 def _causal_depthwise_conv(x: torch.Tensor, w: torch.Tensor,
                            tail: torch.Tensor | None = None) -> torch.Tensor:
     """x: (B, S, C); w: (convw, C); optional tail: (B, convw-1, C), the

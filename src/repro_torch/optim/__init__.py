@@ -2,5 +2,5 @@
 learning-rate schedule and int8 gradient compression."""
 from repro_torch.optim.optimizer import (OptConfig, apply_gradients,
                                          clip_by_global_norm, global_norm,
-                                         init_opt_state)
+                                         init_opt_state, opt_state_specs)
 from repro_torch.optim.schedule import lr_at

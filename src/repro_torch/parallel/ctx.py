@@ -1,13 +1,16 @@
-"""Parallel context: the active mesh of ranks.
+"""Parallel context: the active mesh of ranks and the logical axes.
 
 The reference (``repro/parallel/ctx.py``) lays a ``jax.sharding.Mesh`` of
 devices over the production axes (pod, data, model) and runs the
-distributed paths under ``shard_map``.  Here every rank is a process of an
-initialized ``torch.distributed`` world, and a ``Mesh`` lays those ranks
-out over named axes, row-major, as ``jax.make_mesh`` lays out devices.
-Each collective of the reference over a mesh axis (``psum``/``pmax``/
-``all_gather`` inside ``shard_map``) becomes a ``torch.distributed`` call
-on this rank's group along that axis (``Mesh.axis_group``).
+distributed paths under GSPMD and ``shard_map``.  Here every rank is a
+process of an initialized ``torch.distributed`` world, and a ``Mesh`` lays
+those ranks out over named axes, row-major, as ``jax.make_mesh`` lays out
+devices.  Each collective of the reference over a mesh axis, or a tuple of
+them, becomes a ``torch.distributed`` call on this rank's group along those
+axes (``Mesh.group``; ``parallel/collectives.py``).  An ``AbstractMesh``
+has the shape and axis names alone, no process group: the spec functions
+and ``launch.steps.abstract_*`` run on it for the production shapes in one
+process.
 
 The caller initializes the process group and so picks the backend:
 ``nccl`` with one card per rank, ``gloo`` when ranks share a card or run
@@ -19,18 +22,67 @@ Axis semantics follow the reference (``launch.mesh``):
   * ``model`` — input-cube sharding (CGP: metric partials all-reduced
     across it) / tensor parallelism (LM).
 
-Only the CGP half is here; the LM half (``LOGICAL``, ``resolve_spec``,
-``named_sharding``, ``shard``) waits for the multi-device model.
+Model code names logical axes (``LOGICAL``): "dp", "fsdp" and "sp"
+resolve to (pod, data), "tp" to model, "sweep" to pod, as in the
+reference.  A logical spec is a plain tuple of such names (or None) per
+tensor dim; ``resolve_spec`` gives the physical spec (per dim None, an
+axis or a tuple of axes, as the reference's ``PartitionSpec``) and
+``named_sharding`` a ``Sharding`` on the active mesh.
+
+How the LM computes on a mesh (``models/``, ``launch/steps.py``):
+
+  * **At rest** every rank holds exactly the slice of each parameter,
+    optimizer-state leaf, cache and batch that the reference's resolved
+    spec gives its device (``Sharding.index``).
+  * **Parameters are gathered per layer**: a block gathers every dim its
+    parameters' specs split ("fsdp" and "tp" alike) when it runs, inside
+    the remat region, so the backward pass gathers them again rather than
+    keeping them (``collectives.materialize``).  The gather's backward
+    sums the gradient over the dp axes (a reduce-scatter where a dim is
+    split over them) and keeps this rank's slice, so gradients are summed
+    over the data-parallel ranks only: the "tp" replicas compute the same
+    thing and are never summed twice.
+  * **"dp" splits the batch**: an entry point takes the whole batch and
+    runs on this rank's rows when the batch divides over dp
+    (``batch_split``); the uint8 quantization of the approximate
+    multiplier then takes its scale from the min and max over every rank's
+    rows (``models/quant.py``), so it is the unsharded scale.
+  * **"tp" does not split the compute** of attention, the dense MLP, the
+    SSM mixer or the vocabulary: a "tp" rank gathers what "tp" splits and
+    computes every head and column, the same as its "tp" peers.  True
+    tensor-parallel compute (each rank on its heads and columns, one
+    all-reduce after ``wo`` / ``w_down`` / ``w_out``, a vocab-parallel
+    embedding and head, the score all-reduce of an hd-split cache) is a
+    follow-up (ROADMAP Queue B).  Caches are gathered the same way where
+    a spec splits them (``reshard``), but for the sequence-split decode.
+  * **Expert parallelism** (``moe.moe_ffn_ep``) and the **sequence-split
+    decode** (``attention.decode_self_attention(seq_axes=...)``) run with
+    explicit collectives, as the reference's ``shard_map``s do: each
+    "model" rank computes only its experts and the outputs are summed; each
+    dp rank attends to its rows of the cache and the partial softmaxes
+    merge by log-sum-exp.
 """
 from __future__ import annotations
 
 import contextlib
+import itertools
 import math
-from typing import Sequence
+from typing import Any, Sequence
 
 import numpy as np
 import torch
 import torch.distributed as dist
+
+# logical -> physical axes (the reference's ``LOGICAL``): "pod" is folded
+# into data parallelism for the LM and is the grid partition alone for the
+# CGP sweep
+LOGICAL = {
+    "dp": ("pod", "data"),
+    "fsdp": ("pod", "data"),
+    "sp": ("pod", "data"),   # sequence sharding reuses the data axes
+    "tp": ("model",),
+    "sweep": ("pod",),
+}
 
 _ACTIVE_MESH: "Mesh | None" = None
 
@@ -51,89 +103,276 @@ def default_device(rank: int) -> torch.device:
     return torch.device("cuda", rank % torch.cuda.device_count())
 
 
-class Mesh:
-    """The ranks of the initialized ``torch.distributed`` world over named
-    axes.
+def _as_axes(entry) -> tuple:
+    """A physical spec entry (None, an axis, a tuple of axes) as a tuple."""
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, tuple) else (entry,)
 
-    ``shape`` maps each axis name to its size (as ``jax.sharding.Mesh.
-    shape`` does); ``devices`` is the rank grid.  Construction is
-    collective: every rank creates one process group per line along each
-    axis, all of them in the same order, and keeps the ones it belongs to.
-    ``device`` is this rank's device (default: its card, ``default_device``).
-    """
 
-    def __init__(self, shape: Sequence[int], axis_names: Sequence[str],
-                 device: torch.device | str | None = None):
+class AbstractMesh:
+    """Named axes over ``prod(shape)`` ranks, row-major, without a process
+    group: what the spec functions and shape checks need (the reference's
+    ``jax.sharding.AbstractMesh``).  ``shape`` maps each axis name to its
+    size."""
+
+    def __init__(self, shape: Sequence[int], axis_names: Sequence[str]):
         shape, axis_names = tuple(int(s) for s in shape), tuple(axis_names)
         if len(shape) != len(axis_names) or len(set(axis_names)) != \
                 len(axis_names):
             raise ValueError(f"mesh shape {shape} and axis names "
                              f"{axis_names} do not match")
-        if not dist.is_initialized():
-            raise RuntimeError("Mesh needs an initialized torch.distributed "
-                               "process group")
-        world = dist.get_world_size()
-        if math.prod(shape) != world:
-            raise ValueError(f"mesh shape {shape} needs {math.prod(shape)} "
-                             f"ranks, the world has {world}")
         self.axis_names = axis_names
         self.shape = dict(zip(axis_names, shape))
         self.devices = rank_grid(shape)
-        self.rank = dist.get_rank()
-        self.coords = dict(zip(axis_names, (
-            int(c) for c in np.unravel_index(self.rank, shape))))
-        self.device = (default_device(self.rank) if device is None
-                       else torch.device(device))
-        self._groups = {}
-        for i, name in enumerate(axis_names):
-            lines = np.moveaxis(self.devices, i, -1).reshape(-1, shape[i])
-            for line in lines:
-                group = dist.new_group(line.tolist())
-                if self.rank in line:
-                    self._groups[name] = group
 
     def _check(self, name: str) -> None:
         if name not in self.shape:
             raise ValueError(f"mesh has no axis {name!r} (have: "
                              f"{self.axis_names})")
 
+    def axis_size(self, name: str) -> int:
+        self._check(name)
+        return self.shape[name]
+
+    def size(self, axes: Sequence[str]) -> int:
+        """The number of ranks along ``axes`` (1 for none)."""
+        for a in axes:
+            self._check(a)
+        return math.prod(self.shape[a] for a in axes)
+
+    def __repr__(self) -> str:
+        return f"{type(self).__name__}({self.shape})"
+
+
+class Mesh(AbstractMesh):
+    """The ranks of the initialized ``torch.distributed`` world over named
+    axes.
+
+    ``devices`` is the rank grid.  Construction is collective: every rank
+    creates one process group per line along each non-empty set of axes
+    (a single axis, or a tuple such as dp's (pod, data)), all of them in
+    the same order, and keeps the ones it belongs to; a group's ranks
+    follow the row-major coordinate over its axes.  ``device`` is this
+    rank's device (default: its card, ``default_device``); ``backend`` the
+    groups' (default: the world's).
+    """
+
+    def __init__(self, shape: Sequence[int], axis_names: Sequence[str],
+                 device: torch.device | str | None = None,
+                 backend: str | None = None):
+        super().__init__(shape, axis_names)
+        if not dist.is_initialized():
+            raise RuntimeError("Mesh needs an initialized torch.distributed "
+                               "process group")
+        world = dist.get_world_size()
+        shape = tuple(self.shape.values())
+        if math.prod(shape) != world:
+            raise ValueError(f"mesh shape {shape} needs {math.prod(shape)} "
+                             f"ranks, the world has {world}")
+        self.rank = dist.get_rank()
+        self.coords = dict(zip(self.axis_names, (
+            int(c) for c in np.unravel_index(self.rank, shape))))
+        self.device = (default_device(self.rank) if device is None
+                       else torch.device(device))
+        self._groups = {}
+        n = len(self.axis_names)
+        for k in range(1, n + 1):
+            for dims in itertools.combinations(range(n), k):
+                axes = tuple(self.axis_names[i] for i in dims)
+                rest = [i for i in range(n) if i not in dims]
+                lines = np.transpose(self.devices, rest + list(dims)
+                                     ).reshape(-1, self.size(axes))
+                for line in lines:
+                    group = dist.new_group(line.tolist(), backend=backend)
+                    if self.rank in line:
+                        self._groups[axes] = group
+
+    def group(self, axes: Sequence[str]):
+        """This rank's process group along ``axes`` (in mesh order); its
+        group ranks follow the row-major coordinate over them."""
+        axes = tuple(a for a in self.axis_names if a in tuple(axes))
+        if not axes:
+            raise ValueError("a group needs at least one axis")
+        return self._groups[axes]
+
     def axis_group(self, name: str):
         """This rank's process group along axis ``name``; its group ranks
         follow the axis coordinate."""
         self._check(name)
-        return self._groups[name]
-
-    def axis_size(self, name: str) -> int:
-        self._check(name)
-        return self.shape[name]
+        return self._groups[(name,)]
 
     def axis_index(self, name: str) -> int:
         """This rank's coordinate along axis ``name``."""
         self._check(name)
         return self.coords[name]
 
+    def index(self, axes: Sequence[str]) -> int:
+        """This rank's row-major coordinate over ``axes`` (0 for none)."""
+        i = 0
+        for a in axes:
+            i = i * self.axis_size(a) + self.coords[a]
+        return i
+
     def __repr__(self) -> str:
         return (f"Mesh({self.shape}, rank {self.rank} at {self.coords}, "
                 f"{self.device})")
 
 
-def set_mesh(mesh: Mesh | None) -> None:
+class Sharding:
+    """A tensor's layout on a mesh: per dim, None (whole), one axis or a
+    tuple of axes splitting it (the reference's ``NamedSharding``; dims
+    past ``dims`` are whole).  A split dim is cut into equal blocks in
+    row-major order of its axes."""
+
+    def __init__(self, mesh: AbstractMesh, dims: Sequence):
+        self.mesh = mesh
+        self.dims = tuple(dims)
+
+    def axes(self, d: int) -> tuple:
+        """The axes splitting dim ``d``."""
+        return _as_axes(self.dims[d]) if d < len(self.dims) else ()
+
+    def _check(self, shape: Sequence[int]) -> None:
+        if len(self.dims) > len(shape):
+            raise ValueError(f"spec {self.dims} has more dims than shape "
+                             f"{tuple(shape)}")
+        for d, n in enumerate(shape):
+            k = self.mesh.size(self.axes(d))
+            if n % k:
+                raise ValueError(f"dim {d} of {tuple(shape)} does not split "
+                                 f"over {self.axes(d)} ({k} ranks)")
+
+    def shard_shape(self, shape: Sequence[int]) -> tuple:
+        """The local shape of a tensor of global ``shape`` (the reference's
+        ``NamedSharding.shard_shape``)."""
+        self._check(shape)
+        return tuple(n // self.mesh.size(self.axes(d))
+                     for d, n in enumerate(shape))
+
+    def index(self, shape: Sequence[int]) -> tuple:
+        """This rank's block of a tensor of global ``shape``: one slice per
+        dim."""
+        local = self.shard_shape(shape)
+        return tuple(slice(self.mesh.index(self.axes(d)) * m,
+                           (self.mesh.index(self.axes(d)) + 1) * m)
+                     for d, m in enumerate(local))
+
+    def __repr__(self) -> str:
+        return f"Sharding({self.dims})"
+
+
+def set_mesh(mesh: AbstractMesh | None) -> None:
     global _ACTIVE_MESH
     _ACTIVE_MESH = mesh
 
 
-def get_mesh() -> Mesh | None:
+def get_mesh() -> AbstractMesh | None:
     return _ACTIVE_MESH
 
 
 @contextlib.contextmanager
-def use_mesh(mesh: Mesh):
+def use_mesh(mesh: AbstractMesh):
     old = get_mesh()
     set_mesh(mesh)
     try:
         yield mesh
     finally:
         set_mesh(old)
+
+
+_BATCH_SPLIT = False
+
+
+def batch_split() -> bool:
+    """True while an entry point runs on this rank's rows of a batch split
+    over the dp axes (``split_batch``)."""
+    return _BATCH_SPLIT and get_mesh() is not None
+
+
+@contextlib.contextmanager
+def split_batch(split: bool):
+    """Within the block, activations are this rank's dp rows (``split``)
+    or the whole batch on every rank."""
+    global _BATCH_SPLIT
+    old, _BATCH_SPLIT = _BATCH_SPLIT, bool(split)
+    try:
+        yield
+    finally:
+        _BATCH_SPLIT = old
+
+
+def resolve_axis(logical: str | None) -> Any:
+    """Logical axis -> the physical axes of the active mesh it names: None,
+    one axis, or a tuple of axes (the reference's ``resolve_axis``)."""
+    mesh = get_mesh()
+    if logical is None or mesh is None:
+        return None
+    phys = tuple(a for a in LOGICAL.get(logical, (logical,))
+                 if a in mesh.axis_names)
+    if not phys:
+        return None
+    return phys if len(phys) > 1 else phys[0]
+
+
+def axes_of(logical: str) -> tuple:
+    """``resolve_axis`` as a tuple (empty with no mesh or no such axis)."""
+    return _as_axes(resolve_axis(logical))
+
+
+def is_logical_spec(s) -> bool:
+    """True for a plain tuple of axis names / None (a named tuple such as
+    ``SSMState`` is a container, not a spec)."""
+    return (type(s) is tuple
+            and all(e is None or isinstance(e, str) for e in s))
+
+
+def map_specs(fn, spec_tree):
+    """``fn`` over a logical-spec tree: spec tuples are the leaves; dicts,
+    lists and named tuples are containers."""
+    if is_logical_spec(spec_tree):
+        return fn(spec_tree)
+    if isinstance(spec_tree, dict):
+        return {k: map_specs(fn, v) for k, v in spec_tree.items()}
+    if isinstance(spec_tree, tuple) and hasattr(spec_tree, "_fields"):
+        return type(spec_tree)(*(map_specs(fn, v) for v in spec_tree))
+    if isinstance(spec_tree, (list, tuple)):
+        return type(spec_tree)(map_specs(fn, v) for v in spec_tree)
+    return fn(spec_tree)
+
+
+def resolve_spec(logical_spec: tuple) -> tuple:
+    """The physical spec of a logical one (the reference's
+    ``PartitionSpec`` entries, as a tuple)."""
+    return tuple(resolve_axis(a) for a in logical_spec)
+
+
+def named_sharding(logical_spec: tuple) -> Sharding | None:
+    """The ``Sharding`` of a logical spec on the active mesh (None with no
+    mesh)."""
+    mesh = get_mesh()
+    if mesh is None:
+        return None
+    return Sharding(mesh, resolve_spec(tuple(logical_spec)))
+
+
+def shard(x: torch.Tensor, *logical_spec) -> torch.Tensor:
+    """This rank's slice of the whole tensor ``x`` under the spec; ``x``
+    itself with no mesh (the reference's sharding constraint)."""
+    sh = named_sharding(tuple(logical_spec))
+    if sh is None:
+        return x
+    return x[sh.index(x.shape)].clone()
+
+
+def axis_size(logical: str) -> int:
+    """The rank count along a logical axis (1 with no active mesh, or when
+    none of its physical axes is present)."""
+    mesh = get_mesh()
+    if mesh is None:
+        return 1
+    return math.prod(mesh.shape[a] for a in LOGICAL.get(logical, (logical,))
+                     if a in mesh.axis_names)
 
 
 def pod_count() -> int:

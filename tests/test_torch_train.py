@@ -335,9 +335,15 @@ def test_prefill_and_decode_steps():
 
 
 def test_train_guards(monkeypatch):
-    with pytest.raises(NotImplementedError, match="Queue A item 7"):
+    # every reference mesh is ported (--mesh host trains:
+    # tests/test_torch_parallel_lm.py); a production mesh on a world of
+    # another size raises as jax.make_mesh does, an unknown name raises
+    with pytest.raises(ValueError, match="needs 256 ranks, the world has 1"):
         t_train.train("llama3_2_1b", steps=1, device="cpu",
-                      mesh_name="host")
+                      mesh_name="single")
+    with pytest.raises(ValueError, match="ring"):
+        t_train.train("llama3_2_1b", steps=1, device="cpu",
+                      mesh_name="ring")
     cfg = dataclasses.replace(TB.get_arch("llama3_2_1b").reduced(),
                               attn_impl="pallas")
     with pytest.raises(NotImplementedError, match="pallas"):

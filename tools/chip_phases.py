@@ -1,0 +1,79 @@
+"""Run one of ``chip_smoke.py``'s later phases alone on the card.
+
+  python3 tools/chip_phases.py multi
+  python3 tools/chip_phases.py ep_train --seqs 256,4096
+
+Builds the lut_matmul and flash_attention kernels (one nvcc each, started
+together), installs nothing else, and calls the phase with the exact
+product table as its LUT (the elite's table comes from the sweep of
+phase 4, which this skips).  Prints what the phase prints, the card line
+and the phase's seconds.  Phases: ``multi`` (22, the multi-device LM);
+``ep_train`` (22 (b)'s training alone at batch 2 and each of ``--seqs``:
+the one-rank runs with the single-device MoE and with EP's combine, then
+EP on (data 1, model 2), each length's distances printed, a length
+outside the limit too).
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+import tempfile
+import time
+from concurrent.futures import ThreadPoolExecutor
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+import chip_smoke as CS  # noqa: E402
+
+
+def ep_train(device, tmp, lut, args) -> None:
+    """22 (b)'s training alone at batch 2 and each of ``args.seqs``."""
+    for seq in (int(x) for x in args.seqs.split(",")):
+        shape = (CS.MULTI_EP_TRAIN[0], seq, CS.MULTI_EP_TRAIN[2])
+        one = CS.multi_ep_train(device, shape=shape)
+        CS.free_card()
+        ranks = CS.multi_ranks(CS.multi_ep_train_rank, device, shape)
+        try:
+            CS.log(CS.multi_ep_train_line(CS.multi_ep_train_check(
+                one, ranks, shape[2]), shape))
+        except AssertionError as e:
+            CS.log(f"[multi] (b) EP train, batch {shape[0]} x {seq}, "
+                   f"outside the limit: {e}")
+
+
+PHASES = {"multi": lambda device, tmp, lut, args:
+          CS.phase_multi(device, tmp, lut),
+          "ep_train": ep_train}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("phase", choices=sorted(PHASES))
+    ap.add_argument("--seqs", default=str(CS.MULTI_EP_TRAIN[1]),
+                    help="ep_train: sequence lengths, comma-separated")
+    args = ap.parse_args()
+    sys.path.insert(0, CS.SRC)
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        CS.log("chip_phases: no CUDA device")
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.kernels import flash_attention, lut_matmul
+    with ThreadPoolExecutor(2) as pool:
+        list(pool.map(lambda m: m.build(), (lut_matmul, flash_attention)))
+    a = np.arange(256, dtype=np.int32)
+    lut = a[:, None] * a[None, :]
+    CS.log(CS.card_line())
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_phases_") as tmp:
+        PHASES[args.phase]("cuda", tmp, lut, args)
+    CS.log(f"[time] {args.phase} {time.perf_counter() - t0:.1f} s")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
