@@ -311,12 +311,14 @@ def _migrate(state: EvolveState, island_group) -> EvolveState:
     all_fit = _all_gather(state.parent_fit, island_group)
     all_nodes = _all_gather(state.parent.nodes, island_group)
     all_outs = _all_gather(state.parent.outs, island_group)
-    j = all_fit.argmin()
-    worse = state.parent_fit > all_fit[j]
+    # a one-element index, not a scalar one, so nothing waits for the value
+    j = all_fit.argmin()[None]
+    best_fit = all_fit[j][0]
+    worse = state.parent_fit > best_fit
     return state._replace(
-        parent=Genome(torch.where(worse, all_nodes[j], state.parent.nodes),
-                      torch.where(worse, all_outs[j], state.parent.outs)),
-        parent_fit=torch.where(worse, all_fit[j], state.parent_fit))
+        parent=Genome(torch.where(worse, all_nodes[j][0], state.parent.nodes),
+                      torch.where(worse, all_outs[j][0], state.parent.outs)),
+        parent_fit=torch.where(worse, best_fit, state.parent_fit))
 
 
 def init_state(spec: CGPSpec, cfg: EvolveConfig, golden: Genome,

@@ -5,6 +5,15 @@ kernels (``kernels.cgp_sim``, ``kernels.lut_matmul``,
 ``kernels.flash_attention``); CPU tensors go through their plain versions
 in ``kernels.ref``.  There is no fallback between the two: a CUDA tensor
 launches the kernel or raises.
+
+Fake and ``meta`` tensors, of any device, take an abstract route
+(``launch/dryrun.py`` traces a step on them): the kernel's results come
+back as empty tensors of their shapes and dtypes, nothing is built,
+loaded or launched, no data-dependent check runs, and the call is
+appended to ``TRACED`` as ``{"kernel", "shape", "dtype"}``, ``shape``
+being the arguments of the kernel's work model in ``launch/roofline.py``.
+The glue around a kernel (decoding its raw sums, the sharded wrapper's
+all-reduce) runs on the abstract results as it runs on the real ones.
 """
 from __future__ import annotations
 
@@ -12,6 +21,7 @@ import dataclasses
 
 import torch
 import torch.distributed as dist
+from torch._subclasses.fake_tensor import FakeTensor
 
 from repro_torch.core import metrics as M
 from repro_torch.core.genome import CGPSpec, Genome
@@ -25,6 +35,30 @@ from repro_torch.kernels import tune as _tune
 # version counter, staged uint16 table).  A model's projections all use the
 # same installed LUT, so it is checked and converted once, not per call.
 _STAGED: tuple | None = None
+# the kernel calls made on fake or meta tensors, in order (module docstring)
+TRACED: list[dict] = []
+
+
+def abstract(t: torch.Tensor) -> bool:
+    """True for a tensor that holds no data: fake or on ``meta``."""
+    return isinstance(t, FakeTensor) or t.device.type == "meta"
+
+
+def _traced(kernel: str, shape: tuple, dtype: torch.dtype) -> None:
+    TRACED.append({"kernel": kernel, "shape": [int(n) for n in shape],
+                   "dtype": str(dtype).removeprefix("torch.")})
+
+
+def _abstract_raw(R: int, n_n: int, n_o: int, total_words: int,
+                  device) -> _cgp.RawSums:
+    """Empty ``RawSums`` of a launch of R genomes over a cube of
+    ``total_words`` (which fixes the magnitude regime)."""
+    per_bit = M.exact_sum_per_bit(32 * total_words, n_o)
+    e = lambda shape, dt: torch.empty(shape, dtype=dt, device=device)
+    return _cgp.RawSums(e((R, 3, n_o if per_bit else 1), torch.int64),
+                        e((R, _cgp.N_INTS), torch.int32),
+                        e((R,), torch.int32), e((R, n_n), torch.int32),
+                        e((R, 3), torch.float64))
 
 
 def _partials_from_raw(raw: _cgp.RawSums, n_words: int,
@@ -100,6 +134,18 @@ def cgp_eval_batched(genomes: Genome, spec: CGPSpec, in_planes: torch.Tensor,
     reference's jnp path does).  The variant resolves by the whole cube's
     (width, R) and runs on the slice.
     """
+    n_words = in_planes.shape[1]
+    if abstract(in_planes):
+        R = genomes.nodes.shape[0]
+        _traced("cgp_sim", (R, spec.n_i, spec.n_n, spec.n_o, n_words),
+                torch.int32)
+        total = n_words * (1 if group is None
+                           else dist.get_world_size(group))
+        raw = _abstract_raw(R, spec.n_n, spec.n_o, total, in_planes.device)
+        if group is not None:
+            raw = _cgp.all_reduce_raw(raw, group)
+        return (_partials_from_raw(raw, total, spec.n_o),
+                raw.pops.to(torch.float32))
     v = resolve_variant(layout, spec.n_i // 2, genomes.nodes.shape[0],
                         in_planes.device, block_words, r_tile)
     if in_planes.device.type == "cpu":
@@ -112,7 +158,6 @@ def cgp_eval_batched(genomes: Genome, spec: CGPSpec, in_planes: torch.Tensor,
               gauss_sigma=gauss_sigma, layout=v.layout,
               block_words=v.block_words, r_tile=v.r_tile)
     nodes, outs = genomes.nodes.contiguous(), genomes.outs.contiguous()
-    n_words = in_planes.shape[1]
     if group is None:
         raw = _cgp.cgp_sim_metrics_batched(nodes, outs, in_planes,
                                            golden_vals, **kw)
@@ -166,6 +211,16 @@ def lut_matmul(a: torch.Tensor, b: torch.Tensor,
     nothing for k outside [0, K).  CPU tensors take ``ref.lut_matmul_ref``;
     CUDA tensors launch the kernel, which needs every entry of ``lut`` in
     [0, 65535] and raises otherwise."""
+    if abstract(a):
+        if a.dtype.is_floating_point or b.dtype.is_floating_point:
+            raise ValueError("lut_matmul operands must be integers")
+        if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
+            raise ValueError(f"contraction mismatch: a {tuple(a.shape)}, "
+                             f"b {tuple(b.shape)}")
+        _traced("lut_matmul", (a.shape[0], a.shape[1], b.shape[1]),
+                torch.uint8)
+        return torch.empty((a.shape[0], b.shape[1]), dtype=torch.int32,
+                           device=a.device)
     if a.device.type == "cpu":
         return ref.lut_matmul_ref(a, b, lut)
     return _lut.lut_matmul(_as_u8(a, "a"), _as_u8(b, "b"), _staged_table(lut))
@@ -179,6 +234,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Raises where the reference asserts (each S a multiple of
     ``min(128, S)``).  CPU tensors take ``ref.flash_attention_ref``; CUDA
     tensors launch the kernel, which reads the grouped kv-heads in place."""
+    if abstract(q):
+        _fa.check_shapes(q, k, v)
+        B, Hq, Sq, D = q.shape
+        _traced("flash_attention", (B, Hq, k.shape[1], Sq, k.shape[2], D,
+                                    q.element_size(), bool(causal)), q.dtype)
+        return torch.empty_like(q)
     if q.device.type == "cpu":
         _fa.check_shapes(q, k, v)
         return ref.flash_attention_ref(q, k, v, causal)

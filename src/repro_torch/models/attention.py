@@ -328,9 +328,13 @@ def _seq_split_decode_attn(q, k_new, v_new, k_cache, v_cache, pos,
     lo = mesh.index(seq_axes) * S_local if seq_axes else 0
     local = pos - lo
     own = (local >= 0) & (local < S_local)
-    rows = torch.arange(B, device=dev)[own]
-    k_cache[rows, local[own]] = k_new[own, 0].to(k_cache.dtype)
-    v_cache[rows, local[own]] = v_new[own, 0].to(v_cache.dtype)
+    # every row writes, the ones that do not own ``pos`` their old value:
+    # no data-dependent shape (the dry run traces it; the card never syncs)
+    rows, at = torch.arange(B, device=dev), local.clamp(0, S_local - 1)
+    for cache, new in ((k_cache, k_new), (v_cache, v_new)):
+        cache[rows, at] = torch.where(own[:, None, None],
+                                      new[:, 0].to(cache.dtype),
+                                      cache[rows, at])
     gpos = torch.arange(S_local, device=dev) + lo
     valid = gpos[None, :] <= pos[:, None]
     m, l, o = _partial_decode_attn(q, k_cache, v_cache, valid, cfg)

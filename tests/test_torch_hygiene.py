@@ -101,22 +101,46 @@ def test_default_device_raises_without_a_card(monkeypatch):
     assert resolve_device("cpu").type == "cpu"
 
 
-def test_non_cpu_tensors_never_take_the_plain_path():
+def _no_plain_path(monkeypatch):
+    from repro_torch.kernels import ref
+    for name in ("cgp_eval_ref", "cgp_eval_ref_sharded"):
+        monkeypatch.setattr(ref, name, lambda *a, **k: pytest.fail(
+            "the plain path ran"))
+
+
+def test_non_cpu_tensors_never_take_the_plain_path(monkeypatch):
+    """A tensor off the CPU launches the kernel or raises (a ``meta``
+    tensor stands in for a card's, with the abstract route off); a tensor
+    that holds no data, ``meta`` or fake, takes the abstract route
+    (``launch/dryrun.py``): the plain path runs in neither case."""
     from repro_torch.core.search import SearchConfig, problem_arrays
     from repro_torch.kernels import ops
+    _no_plain_path(monkeypatch)
     gold, spec, planes, gvals, _ = problem_arrays(
         SearchConfig(width=2, kind="mul", n_n=20), "cpu")
     g = type(gold)(gold.nodes[None].to("meta"), gold.outs[None].to("meta"))
-    with pytest.raises(ValueError, match="no cgp_sim kernel"):
-        ops.cgp_eval_batched(g, spec, planes.to("meta"), gvals.to("meta"))
+    with monkeypatch.context() as m:
+        m.setattr(ops, "abstract", lambda t: False)
+        with pytest.raises(ValueError, match="no cgp_sim kernel"):
+            ops.cgp_eval_batched(g, spec, planes.to("meta"),
+                                 gvals.to("meta"))
+    monkeypatch.setattr(ops, "TRACED", [])
+    _, pops = ops.cgp_eval_batched(g, spec, planes.to("meta"),
+                                   gvals.to("meta"))
+    assert pops.device.type == "meta"
+    assert [c["kernel"] for c in ops.TRACED] == ["cgp_sim"]
 
 
-def test_sharded_evaluation_never_takes_the_plain_path_off_the_cpu():
+def test_sharded_evaluation_never_takes_the_plain_path_off_the_cpu(
+        monkeypatch):
     """A process group changes where the cube lies, not which path a
     tensor takes: off the CPU the sharded kernel launches or raises, before
-    any collective."""
+    any collective (a ``meta`` tensor stands in for a card's, with the
+    abstract route off)."""
     from repro_torch.core.search import SearchConfig, problem_arrays
     from repro_torch.kernels import cgp_sim, ops
+    _no_plain_path(monkeypatch)
+    monkeypatch.setattr(ops, "abstract", lambda t: False)
     gold, spec, planes, gvals, _ = problem_arrays(
         SearchConfig(width=2, kind="mul", n_n=20), "cpu")
     g = type(gold)(gold.nodes[None].to("meta"), gold.outs[None].to("meta"))
@@ -187,18 +211,24 @@ def test_lut_matmul_never_takes_the_plain_path_off_the_cpu():
         lut_matmul.lut_matmul(a, b, table)
 
 
-def test_pallas_attention_raises():
+def test_pallas_attention_raises(monkeypatch):
     """``attn_impl="pallas"`` runs the flash kernel: off the CPU it
-    launches it or raises (never the plain version), and on any device it
-    raises where the reference asserts."""
+    launches it or raises (never the plain version; a ``meta`` tensor
+    stands in for a card's, with the abstract route off), and on any device
+    it raises where the reference asserts."""
     import dataclasses
     from repro_torch.configs import llama3_2_1b
+    from repro_torch.kernels import ops, ref
     from repro_torch.models import attention
     cfg = dataclasses.replace(llama3_2_1b.reduced(), attn_impl="pallas")
     q = torch.zeros((1, 8, 4, 8), device="meta")
     k = torch.zeros((1, 8, 2, 8), device="meta")
-    with pytest.raises(ValueError, match="no flash_attention kernel"):
-        attention.run_attention(q, k, k, cfg)
+    with monkeypatch.context() as m:
+        m.setattr(ops, "abstract", lambda t: False)
+        m.setattr(ref, "flash_attention_ref",
+                  lambda *a: pytest.fail("the plain path ran"))
+        with pytest.raises(ValueError, match="no flash_attention kernel"):
+            attention.run_attention(q, k, k, cfg)
     q, k = torch.zeros((1, 130, 4, 8)), torch.zeros((1, 130, 2, 8))
     with pytest.raises(ValueError, match="multiple of"):
         attention.run_attention(q, k, k, cfg)

@@ -2,12 +2,14 @@
 
   python3 tools/chip_phases.py multi
   python3 tools/chip_phases.py ep_train --seqs 256,4096
+  python3 tools/chip_phases.py tooling
 
-Builds the lut_matmul and flash_attention kernels (one nvcc each, started
-together), installs nothing else, and calls the phase with the exact
-product table as its LUT (the elite's table comes from the sweep of
-phase 4, which this skips).  Prints what the phase prints, the card line
-and the phase's seconds.  Phases: ``multi`` (22, the multi-device LM);
+Builds the three kernels (one nvcc each, started together), installs
+nothing else, and calls the phase with the exact product table as its LUT
+(the elite's table comes from the sweep of phase 4, which this skips).
+Prints what the phase prints, the card line and the phase's seconds.
+Phases: ``multi`` (22, the multi-device LM); ``tooling`` (23, the dry run
+and the roofline against the card);
 ``ep_train`` (22 (b)'s training alone at batch 2 and each of ``--seqs``:
 the one-rank runs with the single-device MoE and with EP's combine, then
 EP on (data 1, model 2), each length's distances printed, a length
@@ -45,7 +47,9 @@ def ep_train(device, tmp, lut, args) -> None:
 
 PHASES = {"multi": lambda device, tmp, lut, args:
           CS.phase_multi(device, tmp, lut),
-          "ep_train": ep_train}
+          "ep_train": ep_train,
+          "tooling": lambda device, tmp, lut, args:
+          CS.phase_tooling(device, lut)}
 
 
 def main() -> int:
@@ -62,9 +66,10 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    from repro_torch.kernels import flash_attention, lut_matmul
-    with ThreadPoolExecutor(2) as pool:
-        list(pool.map(lambda m: m.build(), (lut_matmul, flash_attention)))
+    from repro_torch.kernels import cgp_sim, flash_attention, lut_matmul
+    modules = (cgp_sim, lut_matmul, flash_attention)
+    with ThreadPoolExecutor(len(modules)) as pool:
+        list(pool.map(lambda m: m.build(), modules))
     a = np.arange(256, dtype=np.int32)
     lut = a[:, None] * a[None, :]
     CS.log(CS.card_line())

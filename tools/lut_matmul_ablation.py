@@ -170,6 +170,7 @@ def measure(name, lib_path, cs, launches):
     import torch
     from repro_torch.kernels import lut_matmul as K
     from repro_torch.kernels import ref
+    from repro_torch.launch.roofline import lut_bound_ms
     K._LIB = K.load(lib_path)
     slots = K.cluster_slots(0)
     if VARIANTS[name][1]:
@@ -194,7 +195,7 @@ def measure(name, lib_path, cs, launches):
                        if checked else None)
             ts, fill = device_ms(run, launches)
             q1, med, q3 = quartiles(ts)
-            bound = cs.lut_bound_ms(M, k, n)
+            bound = lut_bound_ms(M, k, n)
             rows.append(dict(
                 variant=name, dist=dist, shape=[M, k, n], ms=med, q1=q1,
                 q3=q3, fill_ms=fill, launches=len(ts), checked=checked,
