@@ -44,12 +44,14 @@ def input_planes_np(n_i: int) -> np.ndarray:
 
 
 def popcount32(x: torch.Tensor) -> torch.Tensor:
-    """Set bits of each int32 word (SWAR, in int64): int64 tensor."""
-    x = x.to(torch.int64) & 0xFFFFFFFF
+    """Set bits of each int32 word (SWAR in int32, wrapping as two's
+    complement; the byte counts sum by shifts, no multiply): int32
+    tensor."""
     x = x - ((x >> 1) & 0x55555555)
     x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
     x = (x + (x >> 4)) & 0x0F0F0F0F
-    return ((x * 0x01010101) & 0xFFFFFFFF) >> 24
+    x = x + (x >> 8)
+    return (x + (x >> 16)) & 0x3F
 
 
 def gate_eval(func: torch.Tensor, a: torch.Tensor,

@@ -171,6 +171,18 @@ def test_width9_takes_per_bit_regime():
     assert not M.exact_sum_per_bit(1 << 16, 16)  # 8x8 multiplier
 
 
+def test_popcount32_counts_every_bit():
+    """The plain popcount wraps in int32: words with the sign bit set, the
+    extremes and seeded random words against numpy's bit count."""
+    edge = [0, 1, -1, -2**31, 2**31 - 1, 0x55555555, -0x55555556,
+            0x0F0F0F0F, -0x0F0F0F10]
+    words = np.concatenate([np.array(edge, np.int32), np.random.default_rng(
+        0).integers(-2**31, 2**31, 4096, dtype=np.int64).astype(np.int32)])
+    want = np.unpackbits(words.view(np.uint8)).reshape(-1, 32).sum(1)
+    got = simulate.popcount32(torch.from_numpy(words))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 def test_single_genome_eval_drops_axis():
     jspec, nodes, outs, planes, gvals = _problem(3, "mul", n_genomes=2)
     spec = CGPSpec(n_i=jspec.n_i, n_o=jspec.n_o, n_n=jspec.n_n)

@@ -51,7 +51,8 @@ def test_port_files_found():
                 "optim/optimizer.py", "optim/schedule.py",
                 "optim/compress.py", "runtime/fault.py", "launch/steps.py",
                 "launch/train.py", "configs/phi4_mini_3_8b.py",
-                "configs/stablelm_1_6b.py", "configs/stablelm_12b.py"):
+                "configs/stablelm_1_6b.py", "configs/stablelm_12b.py",
+                "launch/figures.py"):
         assert mod in names
     assert [os.path.basename(p) for p in EXAMPLES] == [
         "approx_nn_inference_torch.py", "pareto_sweep_torch.py",

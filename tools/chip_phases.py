@@ -3,13 +3,20 @@
   python3 tools/chip_phases.py multi
   python3 tools/chip_phases.py ep_train --seqs 256,4096
   python3 tools/chip_phases.py tooling
+  python3 tools/chip_phases.py figures [--width 6 --gens 300]
+  python3 tools/chip_phases.py figures_pass --out-dir D --width 8 \
+      --gens 1200 --seeds 3
 
 Builds the three kernels (one nvcc each, started together), installs
 nothing else, and calls the phase with the exact product table as its LUT
 (the elite's table comes from the sweep of phase 4, which this skips).
 Prints what the phase prints, the card line and the phase's seconds.
 Phases: ``multi`` (22, the multi-device LM); ``tooling`` (23, the dry run
-and the roofline against the card);
+and the roofline against the card); ``figures`` (24, the paper's figure
+pipeline: ``--width`` / ``--gens`` set (b)'s width and generations);
+``figures_pass`` (24 (b) alone into ``--out-dir``, kept: the figure
+JSONs, ``claims_summary.json`` and the grids' shards, at ``--width``,
+``--gens`` and ``--seeds``, default the reference's budget);
 ``ep_train`` (22 (b)'s training alone at batch 2 and each of ``--seqs``:
 the one-rank runs with the single-device MoE and with EP's combine, then
 EP on (data 1, model 2), each length's distances printed, a length
@@ -45,9 +52,26 @@ def ep_train(device, tmp, lut, args) -> None:
                    f"outside the limit: {e}")
 
 
+def figures(device, tmp, lut, args) -> None:
+    """Phase 24 alone, (b) at ``args.width`` / ``args.gens`` if given."""
+    w, g, s = CS.FIG_DEPTH
+    CS.phase_figures(device, tmp, (args.width or w, args.gens or g, s))
+
+
+def figures_pass(device, tmp, lut, args) -> None:
+    """Phase 24 (b) alone into ``args.out_dir``, at the reference's budget
+    unless the flags say otherwise."""
+    if not args.out_dir:
+        raise SystemExit("figures_pass needs --out-dir")
+    CS.figures_depth(device, args.out_dir,
+                     (args.width or 6, args.gens or 1200, args.seeds or 3))
+
+
 PHASES = {"multi": lambda device, tmp, lut, args:
           CS.phase_multi(device, tmp, lut),
           "ep_train": ep_train,
+          "figures": figures,
+          "figures_pass": figures_pass,
           "tooling": lambda device, tmp, lut, args:
           CS.phase_tooling(device, lut)}
 
@@ -57,6 +81,14 @@ def main() -> int:
     ap.add_argument("phase", choices=sorted(PHASES))
     ap.add_argument("--seqs", default=str(CS.MULTI_EP_TRAIN[1]),
                     help="ep_train: sequence lengths, comma-separated")
+    ap.add_argument("--width", type=int, default=None,
+                    help="figures: (b)'s width")
+    ap.add_argument("--gens", type=int, default=None,
+                    help="figures: (b)'s generations")
+    ap.add_argument("--seeds", type=int, default=None,
+                    help="figures_pass: seeds")
+    ap.add_argument("--out-dir", default=None,
+                    help="figures_pass: where the pass's files go")
     args = ap.parse_args()
     sys.path.insert(0, CS.SRC)
     import numpy as np
