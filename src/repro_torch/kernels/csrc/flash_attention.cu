@@ -11,8 +11,8 @@
 // Two bodies; kernels/flash_attention.py::plan picks one.
 //
 // * The tensor-core body (tc::flash_attention_tc_kernel): bf16, D a
-//   multiple of 16 up to 128, instantiated at DP = 16, 32, 64, 128 (the
-//   next one at or above D): the tensor maps keep the true D, so TMA
+//   multiple of 16 up to 160, instantiated at DP = 16, 32, 64, 128, 160
+//   (the next one at or above D): the tensor maps keep the true D, so TMA
 //   zero-fills columns D .. DP - 1 of q, k and v; zero columns add nothing
 //   to QKᵀ and give output columns the epilogue does not store.  What
 //   bounds it is the bf16 tensor-core rate: causal
@@ -62,15 +62,25 @@
 //   KV_ROWS = 64 keeps a consumer thread at S 32 + P terms 48 + tile and
 //   running accumulators D/2 each: 144 registers at D = 64, 176 at D =
 //   128, within the 240 it has (a third consumer warpgroup would leave
-//   160, and spills at D = 64).  The output is stored from
-//   registers, bf16 pairs.  TMA descriptors are 4-D (D, S, H, B) over the
-//   tensors' own strides, so the model's transposed (B, S, H, D) views
-//   are read in place; TMA zero-fills rows beyond S.  They are built per
-//   launch with cuTensorMapEncodeTiled, fetched through
-//   cudaGetDriverEntryPoint (no -lcuda).
+//   160, and spills at D = 64).  At D = 160 that count is 240, the whole
+//   budget before addresses, m and l, yet ptxas fits it with no spill
+//   (flash_attention.tc_resources), so P·V stays one wgmma group over
+//   all 160 columns (m64n160k16).  P·V in two groups of columns, one tile
+//   accumulator live at a time (96 + 64 or 128 + 32), and an
+//   instantiation at 192 (64-column chunks, 20% more tensor-core work)
+//   were built and measured slower (tools/flash_attention_ablation.py).
+//   D = 160 is no multiple of 64, so its tiles are stored as five
+//   32-column chunks (64-byte rows, TMA's and wgmma's 64-byte swizzle)
+//   and every load is five TMA boxes.
+//   Shared memory there: q 40 KB + 3 stages of k and v, 20 KB each.
+//   The output is stored from registers, bf16 pairs.  TMA descriptors
+//   are 4-D (D, S, H, B) over the tensors' own strides, so the model's
+//   transposed (B, S, H, D) views are read in place; TMA zero-fills rows
+//   beyond S.  They are built per launch with cuTensorMapEncodeTiled,
+//   fetched through cudaGetDriverEntryPoint (no -lcuda).
 //
 // * The CUDA-core body (flash_attention_kernel): float32 at every D, and
-//   bf16 at the D the tensor-core body does not take (8, 14, 20, 160,
+//   bf16 at the D the tensor-core body does not take (8, 14, 20, 176,
 //   ...), instantiated at DP = 8, 16, 32, 64, 128, 160, 256 (the next one
 //   at or above D) with columns D .. DP - 1 read as zeros and never
 //   stored.  It loads 4-element vectors where D and the strides are
@@ -364,7 +374,7 @@ static int launch_d(int dp, const void* q, const void* k, const void* v,
 }
 
 // ---------------------------------------------------------------------------
-// The bf16 tensor-core body (D in 16, 32, 64, 128)
+// The bf16 tensor-core body (D in 16, 32, 64, 128, 160)
 // ---------------------------------------------------------------------------
 
 namespace tc {
@@ -379,10 +389,11 @@ constexpr uint32_t HI16 = 0xffff0000u;
 // Shared-memory geometry of a head dimension: the tiles are stored as
 // CH-column chunks of ROWB = 2·CH bytes per row, ROWB being the TMA /
 // wgmma swizzle span (32, 64 or 128 bytes); D = 128 is two 64-column
-// chunks side by side.
+// chunks side by side, D = 160 five 32-column ones (64 does not divide
+// it).
 template <int D>
 struct Geo {
-  static constexpr int CH = D < 64 ? D : 64;
+  static constexpr int CH = D < 64 ? D : D % 64 ? 32 : 64;
   static constexpr int ROWB = 2 * CH;
   static constexpr uint32_t LAYOUT = ROWB == 128 ? 1 : ROWB == 64 ? 2 : 3;
   static constexpr int SBO = 8 * ROWB;           // one 8-row swizzle atom
@@ -567,6 +578,39 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t* a,
         "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
+}
+
+// O[64 x 160] (+)= A·B, A from registers, B MN-major in shared memory
+__device__ __forceinline__ void wgmma_rs(float (&d)[80], const uint32_t* a,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %85, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
+      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
+      "%57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, "
+      "%71, %72, %73, %74, %75, %76, %77, %78, %79},"
+      "{%80, %81, %82, %83}, %84, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
         "r"(accumulate));
 }
@@ -1007,6 +1051,7 @@ int flash_attention_tc_launch(const void* q, const void* k, const void* v,
     case 32: return launch_tc<32>(q, k, v, o, dims, strides, boxes, Hq, Hkv, Sq, Skv, D, causal, scale, so, gx, gy, s);
     case 64: return launch_tc<64>(q, k, v, o, dims, strides, boxes, Hq, Hkv, Sq, Skv, D, causal, scale, so, gx, gy, s);
     case 128: return launch_tc<128>(q, k, v, o, dims, strides, boxes, Hq, Hkv, Sq, Skv, D, causal, scale, so, gx, gy, s);
+    case 160: return launch_tc<160>(q, k, v, o, dims, strides, boxes, Hq, Hkv, Sq, Skv, D, causal, scale, so, gx, gy, s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -1018,6 +1063,7 @@ int flash_attention_tc_smem(int D) {
     case 32: return tc::Geo<32>::SMEM;
     case 64: return tc::Geo<64>::SMEM;
     case 128: return tc::Geo<128>::SMEM;
+    case 160: return tc::Geo<160>::SMEM;
   }
   return 0;
 }

@@ -17,13 +17,14 @@ the HBM rate where those are larger.  ``plan`` picks one of two bodies of
 ``csrc/flash_attention.cu`` and the head dim it is instantiated at
 (``Plan.head_dim``, the true D or the next instantiated one above it):
 
-* ``"tensor_core"`` — bf16 with D a multiple of 16 up to 128, the model's
+* ``"tensor_core"`` — bf16 with D a multiple of 16 up to 160, the model's
   path, instantiated at ``TC_HEAD_DIMS`` (D = 48 runs at 64; 80, 96 and
-  112 at 128: TMA zero-fills the columns past D, which add nothing to QKᵀ
-  and give output columns that are never stored).
+  112 at 128; 144 at 160: TMA zero-fills the columns past D, which add
+  nothing to QKᵀ and give output columns that are never stored).
   Warp-specialised: a producer warpgroup (one thread) feeds q, k and v
   tiles through TMA and mbarriers, two consumer warpgroups run QKᵀ and
-  P·V on ``wgmma``.
+  P·V on ``wgmma``.  Tiles are stored in chunks of ``tc_chunk`` columns
+  (the TMA box's and the swizzle's span): five of 32 at D = 160.
   P·V takes three bf16 terms of P (exact split), so the body spends twice
   the function's tensor-core work; a single bf16 P misses the bf16
   tolerance ``chip_smoke.py`` holds it to.  TMA reads the tensors in
@@ -31,7 +32,8 @@ the HBM rate where those are larger.  ``plan`` picks one of two bodies of
   which must be multiples of 16 bytes on a 16-byte aligned base.
 * ``"cuda_core"`` — float32 at every D (its rtol 1e-5 needs float32
   products), and bf16 at the other D (8, the reduced configurations' 14
-  and 20, 160 and any D up to ``MAX_HEAD_DIM``): float32 FMAs on the CUDA
+  and 20, and any D up to ``MAX_HEAD_DIM`` that is not a multiple of 16
+  up to 160, 176 .. 256 among them): float32 FMAs on the CUDA
   cores, instantiated at ``CORE_HEAD_DIMS`` with the columns past D masked
   on load and store.  It reads 4-element vectors where D, the strides and
   the bases allow it (``Plan.vector``) and single elements otherwise, so
@@ -55,7 +57,7 @@ import torch
 from repro_torch.kernels import nvcc
 
 SOURCE = nvcc.CSRC / "flash_attention.cu"
-TC_HEAD_DIMS = (16, 32, 64, 128)   # instantiations of the tensor-core body
+TC_HEAD_DIMS = (16, 32, 64, 128, 160)   # the tensor-core body's instantiations
 CORE_HEAD_DIMS = (8, 16, 32, 64, 128, 160, 256)   # ... of the CUDA-core body
 MAX_HEAD_DIM = CORE_HEAD_DIMS[-1]
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -76,7 +78,8 @@ _LIB = None
 class TmaBox:
     """One tensor's TMA geometry, innermost first: ``dims`` (D, S, H, B)
     in elements, ``strides`` of S, H, B in bytes, ``box`` (columns, rows,
-    1, 1) in elements — columns the 32/64/128-byte swizzle span."""
+    1, 1) in elements — columns the 32/64/128-byte swizzle span
+    (``tc_chunk``)."""
     dims: tuple[int, int, int, int]
     strides: tuple[int, int, int]
     box: tuple[int, int, int, int]
@@ -109,6 +112,13 @@ def _causal_tiles(Sq, Skv, bq, bkv, causal):
                for q0 in range(0, Sq, bq))
 
 
+def tc_chunk(head_dim):
+    """Columns of one chunk of the tensor-core body's tiles at
+    ``head_dim`` (its TMA box and swizzle span): the head dim below 64, 32
+    where 64 does not divide it (160: five 64-byte chunks), else 64."""
+    return head_dim if head_dim < 64 else 32 if head_dim % 64 else 64
+
+
 def _tma_box(shape, strides, rows, head_dim):
     """TmaBox of a bf16 (B, H, S, D) tensor read in boxes of ``rows`` by
     the body instantiated at ``head_dim`` >= D (columns past D read as
@@ -117,7 +127,7 @@ def _tma_box(shape, strides, rows, head_dim):
     contiguous = (H * S * D, S * D, D)   # for size-1 dims: never stepped
     sb, sh, ss = (2 * (st if n > 1 else c) for st, n, c in
                   zip(strides[:3], (B, H, S), contiguous))
-    return TmaBox((D, S, H, B), (ss, sh, sb), (min(head_dim, 64), rows, 1, 1))
+    return TmaBox((D, S, H, B), (ss, sh, sb), (tc_chunk(head_dim), rows, 1, 1))
 
 
 def _next_dim(D, dims):
@@ -131,7 +141,7 @@ def plan(q_shape, kv_shape, dtype, q_strides, k_strides, v_strides,
     (B, Hkv, Skv, D) of ``dtype`` with these element strides (o's default
     to q's) and data pointers (q, k, v, o).
 
-    bf16 with D a multiple of 16 up to 128 takes the tensor-core body at
+    bf16 with D a multiple of 16 up to 160 takes the tensor-core body at
     the next ``TC_HEAD_DIMS`` entry: every stride but the last (1) a
     multiple of 16 bytes and every base 16-byte aligned, as TMA reads
     them.  float32, and bf16 at other D, take the CUDA-core body at the

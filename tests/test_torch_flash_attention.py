@@ -122,11 +122,13 @@ from repro.kernels import flash_attention as j_fa  # noqa: E402
 from repro_torch.kernels import flash_attention as FA  # noqa: E402
 
 # chip_smoke.py phase 9's bf16 shapes with the body's head dims (D = 8
-# takes the CUDA-core body), S cut to <= 512; (B, Hq, Hkv, S, D), causal
+# takes the CUDA-core body), S cut to <= 512; (B, Hq, Hkv, S, D), causal.
+# D = 160 (stablelm-12b): causal GQA, full, and its serve shape
 TC_SHAPES = [((4, 32, 8, 32, 64), True), ((1, 32, 8, 512, 64), True),
              ((2, 8, 2, 256, 64), False), ((2, 8, 2, 256, 64), True),
              ((1, 4, 4, 96, 16), True), ((1, 4, 1, 128, 32), False),
-             ((1, 4, 2, 512, 128), True)]
+             ((1, 4, 2, 512, 128), True), ((1, 8, 2, 256, 160), True),
+             ((1, 4, 1, 128, 160), False), ((2, 32, 8, 32, 160), True)]
 HI16 = -65536                # 0xffff0000 as an int32 mask
 
 
@@ -234,6 +236,7 @@ def test_three_terms_are_exact_and_one_bf16_p_is_not_enough():
 @pytest.mark.parametrize("dtype,D,body", [
     (torch.bfloat16, 16, "tensor_core"), (torch.bfloat16, 32, "tensor_core"),
     (torch.bfloat16, 64, "tensor_core"), (torch.bfloat16, 128, "tensor_core"),
+    (torch.bfloat16, 160, "tensor_core"), (torch.float32, 160, "cuda_core"),
     (torch.bfloat16, 8, "cuda_core"), (torch.float32, 8, "cuda_core"),
     (torch.float32, 64, "cuda_core"), (torch.float32, 128, "cuda_core")])
 def test_plan_picks_the_body_by_dtype_and_head_dim(dtype, D, body):
@@ -249,6 +252,7 @@ def test_plan_picks_the_body_by_dtype_and_head_dim(dtype, D, body):
     (64, 32768, True, (32, 256), 32 * (2 * (255 * 256 // 2) + 2 * 256)),
     (64, 32768, False, (32, 256), 32 * 256 * 512),
     (128, 32768, True, (32, 256), 32 * (2 * (255 * 256 // 2) + 2 * 256)),
+    (160, 32768, True, (32, 256), 32 * (2 * (255 * 256 // 2) + 2 * 256)),
     (64, 32, True, (32, 1), 32), (64, 96, True, (32, 1), 32 * 2),
     (16, 256, True, (32, 2), 32 * (2 + 4))])
 def test_plan_grid_and_causal_tiles(D, S, causal, grid, tiles):
@@ -262,7 +266,7 @@ def test_plan_grid_and_causal_tiles(D, S, causal, grid, tiles):
     assert pl.grid == grid and pl.tiles == tiles
 
 
-@pytest.mark.parametrize("D", [16, 32, 64, 128])
+@pytest.mark.parametrize("D", [16, 32, 64, 128, 160])
 def test_plan_tma_reads_the_models_transposed_views(D):
     B, S, Hq, Hkv = 4, 256, 32, 8
     # the model's (B, S, H, D) projections, passed as (B, H, S, D) views
@@ -272,7 +276,8 @@ def test_plan_tma_reads_the_models_transposed_views(D):
     pl = FA.plan(q.shape, k.shape, torch.bfloat16, q.stride(), k.stride(),
                  v.stride(), ptrs=(0, 4096, 8192, 12288))
     tq, tk, tv = pl.tma
-    ch = min(D, 64)               # the box's row: the swizzle span
+    # the box's row: the swizzle span (160 = five 64-byte chunks)
+    ch = 32 if D == 160 else min(D, 64)
     assert tq == FA.TmaBox((D, S, Hq, B), (2 * Hq * D, 2 * D, 2 * S * Hq * D),
                            (ch, 128, 1, 1))
     # GQA: k and v keep their Hkv heads; the kernel maps q-head h to h / 4
@@ -354,7 +359,9 @@ def test_any_head_dim_matches_jax(D, causal, dtype):
     (torch.bfloat16, 14, "cuda_core", 16, False),
     (torch.bfloat16, 20, "cuda_core", 32, True),
     (torch.bfloat16, 112, "tensor_core", 128, True),
-    (torch.bfloat16, 160, "cuda_core", 160, True),
+    (torch.bfloat16, 160, "tensor_core", 160, True),
+    (torch.bfloat16, 144, "tensor_core", 160, True),
+    (torch.bfloat16, 176, "cuda_core", 256, True),
     (torch.float32, 14, "cuda_core", 16, False),
     (torch.float32, 20, "cuda_core", 32, True),
     (torch.float32, 112, "cuda_core", 128, True),
@@ -370,8 +377,11 @@ def test_plan_pads_the_head_dim(dtype, D, body, head_dim, vector):
     assert (pl.body, pl.head_dim, pl.vector) == (body, head_dim, vector)
     if body == "tensor_core":
         # the maps keep the true D; the boxes are the padded geometry's
+        # chunks (64-byte ones at 160, which 64 columns do not divide)
+        chunk = 32 if head_dim == 160 else min(head_dim, 64)
+        assert FA.tc_chunk(head_dim) == chunk
         for t in pl.tma:
-            assert t.dims[0] == D and t.box[0] == min(head_dim, 64)
+            assert t.dims[0] == D and t.box[0] == chunk
             assert t.strides[0] == 2 * D
     else:
         assert pl.tma is None
@@ -405,3 +415,53 @@ def test_zero_padded_columns_keep_the_tensor_core_arithmetic(causal):
     _assert_close(got[..., :112].to(torch.float32).numpy(),
                   want.to(torch.float32).numpy(), "bfloat16",
                   "padded vs the plain version")
+
+
+def test_zero_padded_columns_at_144_keep_the_tensor_core_arithmetic():
+    """D = 144 on the body instantiated at 160: as D = 112 at 128, TMA's
+    zero columns (144-159, half of the fifth 32-column chunk) and the
+    scale of the true D give the plain version's result within the bf16
+    tolerance; the padded output columns are zero."""
+    shape = (1, 8, 2, 256, 144)
+    q, k, v = (torch.as_tensor(x).to(torch.bfloat16)
+               for x in _tc_inputs(shape, 6))
+    pad = lambda x: torch.nn.functional.pad(x, (0, 16))
+    for causal in (True, False):
+        got = _tc_body_emulation(pad(q), pad(k), pad(v), causal,
+                                 scale_dim=144)
+        assert not bool(got[..., 144:].to(torch.float32).any())
+        want = ref.flash_attention_ref(q, k, v, causal)
+        _assert_close(got[..., :144].to(torch.float32).numpy(),
+                      want.to(torch.float32).numpy(), "bfloat16",
+                      f"padded vs the plain version, causal={causal}")
+
+
+def test_tc_chunks_tile_every_instantiation():
+    """Each tensor-core instantiation is whole chunks of a swizzle span
+    that TMA and wgmma share (32, 64 or 128 bytes a row)."""
+    for dp in FA.TC_HEAD_DIMS:
+        ch = FA.tc_chunk(dp)
+        assert dp % ch == 0 and 2 * ch in (32, 64, 128)
+    assert [FA.tc_chunk(d) for d in FA.TC_HEAD_DIMS] == [16, 32, 64, 64, 32]
+
+
+def test_ablation_variants_apply_to_the_source():
+    """tools/flash_attention_ablation.py's text edits (one variant per
+    design choice, D = 160's among them) all still apply to the kernel's
+    source, and each changes it."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "tools" / \
+        "flash_attention_ablation.py"
+    spec = importlib.util.spec_from_file_location("fa_ablation", path)
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    text = FA.SOURCE.read_text()
+    names = list(tool._edits())
+    assert {"pv_split_96_64", "pv_split_128_32", "d160_at_192"} <= set(names)
+    for name in names:
+        out = tool.variant_source(name, text)
+        assert (out == text) == (name == "shipped"), name
+    # the 192 variant's process plans D = 160 at 192 in 64-column chunks
+    assert tool.TC_HEAD_DIMS["d160_at_192"][-1] == 192
+    assert FA.tc_chunk(192) == 64

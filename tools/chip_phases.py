@@ -1,5 +1,8 @@
 """Run one of ``chip_smoke.py``'s later phases alone on the card.
 
+  python3 tools/chip_phases.py flash
+  python3 tools/chip_phases.py dense
+  python3 tools/chip_phases.py ssm
   python3 tools/chip_phases.py multi
   python3 tools/chip_phases.py ep_train --seqs 256,4096
   python3 tools/chip_phases.py tooling
@@ -11,8 +14,13 @@ Builds the three kernels (one nvcc each, started together), installs
 nothing else, and calls the phase with the exact product table as its LUT
 (the elite's table comes from the sweep of phase 4, which this skips).
 Prints what the phase prints, the card line and the phase's seconds.
-Phases: ``multi`` (22, the multi-device LM); ``tooling`` (23, the dry run
-and the roofline against the card); ``figures`` (24, the paper's figure
+Phases: ``flash`` (9, flash_attention against its plain version, with
+the build's ptxas report); ``dense`` (16, the dense configurations
+served: on the exact table phi4-mini's two attention paths part by more
+than the logits limit, which was set on the elite's table); ``ssm``
+(18's SSM configuration, mamba2-1.3b, served); ``multi`` (22, the
+multi-device LM); ``tooling`` (23, the dry run and the roofline against
+the card); ``figures`` (24, the paper's figure
 pipeline: ``--width`` / ``--gens`` set (b)'s width and generations);
 ``figures_pass`` (24 (b) alone into ``--out-dir``, kept: the figure
 JSONs, ``claims_summary.json`` and the grids' shards, at ``--width``,
@@ -67,7 +75,13 @@ def figures_pass(device, tmp, lut, args) -> None:
                      (args.width or 6, args.gens or 1200, args.seeds or 3))
 
 
-PHASES = {"multi": lambda device, tmp, lut, args:
+PHASES = {"flash": lambda device, tmp, lut, args:
+          CS.phase_flash(device, args.build_logs["flash_attention"]),
+          "dense": lambda device, tmp, lut, args:
+          CS.phase_serve_dense(device, lut),
+          "ssm": lambda device, tmp, lut, args:
+          CS.phase_serve_ssm(device, lut),
+          "multi": lambda device, tmp, lut, args:
           CS.phase_multi(device, tmp, lut),
           "ep_train": ep_train,
           "figures": figures,
@@ -101,7 +115,9 @@ def main() -> int:
     from repro_torch.kernels import cgp_sim, flash_attention, lut_matmul
     modules = (cgp_sim, lut_matmul, flash_attention)
     with ThreadPoolExecutor(len(modules)) as pool:
-        list(pool.map(lambda m: m.build(), modules))
+        infos = list(pool.map(lambda m: m.build(), modules))
+    args.build_logs = {m.__name__.rsplit(".", 1)[-1]: info.log
+                       for m, info in zip(modules, infos)}
     a = np.arange(256, dtype=np.int32)
     lut = a[:, None] * a[None, :]
     CS.log(CS.card_line())
