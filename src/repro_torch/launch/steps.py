@@ -12,8 +12,11 @@ On a mesh (``parallel.ctx``) the parameters are this rank's slices
 (``convert.shard_params``), the optimizer state this rank's slices by
 ``optim.opt_state_specs``, and the train step takes the whole batch:
 ``models.model.lm_loss`` runs on this rank's dp rows and returns the mean
-over the whole batch, the gradients come out summed over the dp ranks
-only, and the update reduces across slices where it must.  The sharding
+over the whole batch (vocab-parallel where "tp" divides the vocabulary),
+the gradients come out summed over the dp ranks only (a tensor-parallel
+block's "tp"-split gradients are this rank's own, its norms' the same on
+every "model" rank), and the update reduces across slices where it must
+(the clip's norm counts each leaf once: ``optim.global_norm``).  The sharding
 assembly is the reference's: ``resolve_tree``, ``batch_specs``,
 ``stacked_cache_specs`` and the ``abstract_*`` shapes (on the ``meta``
 device, PyTorch's ``eval_shape``).

@@ -17,6 +17,18 @@ on a mesh, a cache whose sequence is split over the dp axes
 (``decode_self_attention(seq_axes=...)``, the reference's flash-decoding
 under ``shard_map``): each rank attends to its rows, only the owner of the
 new position writes it, and the partial softmaxes merge by log-sum-exp.
+
+On a mesh whose "tp" axes divide the heads (``attention_tp``),
+self-attention and its decode run this rank's ``n_heads / tp`` query heads:
+``wq`` column-parallel, ``wo`` row-parallel with *g* after it
+(``parallel.collectives``).  Where ``n_kv_heads`` divides over "tp" too,
+``wk`` / ``wv`` are column-parallel and a rank's k / v (and its cache) are
+its own kv heads; where "tp" is a multiple of ``n_kv_heads``, a rank's
+query heads share kv head ``h // (n_heads / n_kv_heads)``, which it
+projects from the gathered ``wk`` / ``wv`` (every kv head where a cache
+takes them: that cache splits head_dim at rest and is gathered whole).
+Query heads that do not divide (phi4-mini's 24 at tp = 16) keep the whole
+block on every rank, as cross-attention and the sequence-split decode do.
 """
 from __future__ import annotations
 
@@ -182,26 +194,67 @@ def run_attention(q, k, v, cfg: ModelConfig, causal: bool = True
 
 # ------------------------------ layer apply ---------------------------------
 
+def attention_tp(cfg: ModelConfig) -> tuple:
+    """The live "tp" axes self-attention splits its heads over on the
+    active mesh: the query heads divide over them, and the kv heads do
+    too or divide them; none otherwise (every rank computes every head)."""
+    tp = ctx.tp_divides(cfg.n_heads)
+    n = ctx.get_mesh().size(tp) if tp else 1
+    if tp and (cfg.n_kv_heads % n == 0 or n % cfg.n_kv_heads == 0):
+        return tp
+    return ()
+
+
+def _qkv(params: Attention, h: torch.Tensor, cfg: ModelConfig, tp: tuple,
+         all_kv: bool):
+    """(q, k, v, own): q of this rank's query heads (all without ``tp``),
+    k / v (B, S, kv heads, hd) and the slice of their kv heads the query
+    heads attend to.  Where "tp" is a multiple of the kv heads, k / v hold
+    every kv head when ``all_kv`` (for a cache) or on the LUT (whose
+    weight range is the whole weight's), else only the rank's own."""
+    B, S, _ = h.shape
+    hd = cfg.hd
+    mesh = ctx.get_mesh()
+    n = mesh.size(tp) if tp else 1
+    q = matmul(h, params.wq.to(h.dtype), cfg, tp).reshape(
+        B, S, cfg.n_heads // n, hd)
+    if cfg.n_kv_heads % n == 0:
+        k, v = (matmul(h, w.to(h.dtype), cfg, tp).reshape(B, S, -1, hd)
+                for w in (params.wk, params.wv))
+        return q, k, v, slice(None)
+    j = mesh.index(tp) * cfg.n_kv_heads // n
+    # the whole columns; the backward pass sums each rank's part over tp
+    wk, wv = (coll.all_gather(w, mesh, tp, 1) for w in (params.wk,
+                                                         params.wv))
+    if all_kv or cfg.approx_matmul:
+        k, v = (matmul(h, w.to(h.dtype), cfg).reshape(B, S, -1, hd)
+                for w in (wk, wv))
+        return q, k, v, slice(j, j + 1)
+    k, v = (matmul(h, w[:, j * hd:(j + 1) * hd].to(h.dtype), cfg).reshape(
+        B, S, 1, hd) for w in (wk, wv))
+    return q, k, v, slice(None)
+
+
 def self_attention(params: Attention, x: torch.Tensor, cfg: ModelConfig,
-                   positions: torch.Tensor | None = None):
+                   positions: torch.Tensor | None = None, tp: tuple = (),
+                   all_kv: bool = False):
     """Pre-norm residual GQA self-attention over a full sequence:
-    (x + out, (k, v)) with k/v (B, S, Hkv, hd) after RoPE."""
+    (x + out, (k, v)) with k/v (B, S, Hkv, hd) after RoPE.  ``tp``
+    (``attention_tp``): ``params`` hold this rank's columns of wq / wk /
+    wv and rows of wo, and k / v its kv heads (``_qkv``; every one with
+    ``all_kv``)."""
     B, S, _ = x.shape
     hd = cfg.hd
-    h = rms_norm(x, params.norm, cfg.norm_eps)
-    q = matmul(h, params.wq.to(h.dtype), cfg).reshape(B, S, cfg.n_heads, hd)
-    k = matmul(h, params.wk.to(h.dtype), cfg).reshape(B, S, cfg.n_kv_heads,
-                                                      hd)
-    v = matmul(h, params.wv.to(h.dtype), cfg).reshape(B, S, cfg.n_kv_heads,
-                                                      hd)
+    h = coll.tp_in(rms_norm(x, params.norm, cfg.norm_eps), tp)
+    q, k, v, own = _qkv(params, h, cfg, tp, all_kv)
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :]
     sin, cos = rope_angles(positions, hd, cfg.rope_theta)
     q = apply_rope(q, sin, cos)
     k = apply_rope(k, sin, cos)
-    out = run_attention(q, k, v, cfg, causal=True)
-    out = matmul(out.reshape(B, S, cfg.n_heads * hd),
-                 params.wo.to(h.dtype), cfg)
+    out = run_attention(q, k[:, :, own], v[:, :, own], cfg, causal=True)
+    out = matmul(out.reshape(B, S, q.shape[2] * hd),
+                 params.wo.to(h.dtype), cfg, tp, row=True)
     return x + out, (k, v)
 
 
@@ -238,7 +291,7 @@ def cross_attention(params: Attention, x: torch.Tensor,
 def decode_self_attention(params: Attention, x: torch.Tensor,
                           k_cache: torch.Tensor, v_cache: torch.Tensor,
                           pos: torch.Tensor, cfg: ModelConfig,
-                          seq_axes: tuple | None = None):
+                          seq_axes: tuple | None = None, tp: tuple = ()):
     """One-token decode step against a KV cache.
 
     x: (B, 1, D); caches (B, S_max, Hkv, hd); pos: (B,) current lengths.
@@ -254,15 +307,15 @@ def decode_self_attention(params: Attention, x: torch.Tensor,
     the one-shard case: the same arithmetic over the whole cache, no
     collective (the ordinary path rounds q and the softmax weights to the
     cache's dtype, as the reference's does; this one keeps them float32).
+
+    ``tp`` (``attention_tp``, not with ``seq_axes``): this rank's query
+    heads; the caches hold its kv heads, or every kv head where "tp" is a
+    multiple of them (the rank writes each and attends to its own).
     """
     B = x.shape[0]
     hd = cfg.hd
-    h = rms_norm(x, params.norm, cfg.norm_eps)
-    q = matmul(h, params.wq.to(h.dtype), cfg).reshape(B, 1, cfg.n_heads, hd)
-    k_new = matmul(h, params.wk.to(h.dtype), cfg).reshape(
-        B, 1, cfg.n_kv_heads, hd)
-    v_new = matmul(h, params.wv.to(h.dtype), cfg).reshape(
-        B, 1, cfg.n_kv_heads, hd)
+    h = coll.tp_in(rms_norm(x, params.norm, cfg.norm_eps), tp)
+    q, k_new, v_new, own = _qkv(params, h, cfg, tp, all_kv=True)
     sin, cos = rope_angles(pos[:, None], hd, cfg.rope_theta)
     q = apply_rope(q, sin, cos)
     k_new = apply_rope(k_new, sin, cos)
@@ -272,12 +325,13 @@ def decode_self_attention(params: Attention, x: torch.Tensor,
         v_cache[rows, pos] = v_new[:, 0].to(v_cache.dtype)
         valid = (torch.arange(k_cache.shape[1], device=x.device)[None, :]
                  <= pos[:, None])                             # (B, S)
-        out = _masked_decode_attn(q, k_cache, v_cache, valid, cfg)
+        out = _masked_decode_attn(q, k_cache[:, :, own], v_cache[:, :, own],
+                                  valid, cfg)
     else:
         out = _seq_split_decode_attn(q, k_new, v_new, k_cache, v_cache, pos,
                                      cfg, seq_axes).to(x.dtype)
-    out = matmul(out.reshape(B, 1, cfg.n_heads * hd),
-                 params.wo.to(h.dtype), cfg)
+    out = matmul(out.reshape(B, 1, q.shape[2] * hd),
+                 params.wo.to(h.dtype), cfg, tp, row=True)
     return x + out, k_cache, v_cache
 
 

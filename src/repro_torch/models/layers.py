@@ -21,6 +21,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.parallel import collectives as coll
+from repro_torch.parallel import ctx
 from repro_torch.parallel.collectives import materialize
 
 
@@ -59,14 +61,19 @@ def ieee_fp32():
         torch.backends.cuda.matmul.allow_tf32 = prev
 
 
-def matmul(x: torch.Tensor, w: torch.Tensor, cfg: ModelConfig
-           ) -> torch.Tensor:
+def matmul(x: torch.Tensor, w: torch.Tensor, cfg: ModelConfig,
+           tp: tuple = (), row: bool = False) -> torch.Tensor:
     """Projection matmul; through the evolved multiplier's LUT when
-    ``cfg.approx_matmul`` (``models/quant.py``)."""
+    ``cfg.approx_matmul`` (``models/quant.py``).  ``tp``: the live "tp"
+    axes ``w`` is split over, its columns (column-parallel: this rank's
+    output columns; *f* stands before it, at the caller) or with ``row``
+    its rows (row-parallel: ``x`` holds this rank's K columns, and the
+    result is the whole sum, *g* on the float path)."""
     if cfg.approx_matmul:
         from repro_torch.models import quant
-        return quant.approx_matmul(x, w)
-    return x @ w
+        return quant.approx_matmul(x, w, tp=tp, row=row)
+    y = x @ w
+    return coll.tp_out(y, tp) if row else y
 
 
 # ----------------------------- rotary embeddings ---------------------------
@@ -108,7 +115,6 @@ def embed_specs(cfg: ModelConfig) -> dict:
     """The table's logical spec (``repro/models/layers.py::embed_specs``):
     the vocab over "tp" when it divides, else the vocab over "fsdp" (when
     that divides) and d_model over "tp"."""
-    from repro_torch.parallel import ctx
     tp = max(1, ctx.axis_size("tp"))
     dp = max(1, ctx.axis_size("dp"))
     v_tp = "tp" if cfg.vocab % tp == 0 else None
@@ -125,18 +131,37 @@ def init_embed(gen: torch.Generator, cfg: ModelConfig, device) -> Embed:
     return e
 
 
-def embed_tokens(params: Embed, tokens: torch.Tensor, cfg: ModelConfig
-                 ) -> torch.Tensor:
+def embed_tokens(params: Embed, tokens: torch.Tensor, cfg: ModelConfig,
+                 tp: tuple = ()) -> torch.Tensor:
     """tokens (B, S) -> (B, S, d_model) in the activation dtype.  Audio
     tokens (B, S, C): the C codebooks' embeddings summed in order c = 0 ..
-    C-1 in the table's dtype, then cast, as the reference sums them."""
-    tok = materialize(params.tokens)
+    C-1 in the table's dtype, then cast, as the reference sums them.
+
+    ``tp``: the live "tp" axes the vocabulary is split over (the table
+    holds this rank's rows): each rank looks up the ids in its rows, zero
+    elsewhere, and the lookups are summed over ``tp`` (exact: one term of
+    each sum is not zero), each codebook's apart."""
+    tok = materialize(params.tokens, ("model",) if tp else ())
+    ids = tokens
+    if tp:
+        rows = tok.shape[-2]
+        ids = tokens - ctx.get_mesh().index(tp) * rows
+        own = ((ids >= 0) & (ids < rows))[..., None]
+        ids = ids.clamp(0, rows - 1)
     if cfg.frontend == "audio":
-        out = tok[0][tokens[..., 0]]
+        parts = [tok[c][ids[..., c]] for c in range(cfg.n_codebooks)]
+        if tp:
+            parts = coll.tp_out(torch.stack([
+                torch.where(own[..., c, :], e, 0) for c, e in
+                enumerate(parts)]), tp).unbind(0)
+        out = parts[0]
         for c in range(1, cfg.n_codebooks):
-            out = out + tok[c][tokens[..., c]]
+            out = out + parts[c]
         return out.to(cfg.adtype())
-    return tok[tokens].to(cfg.adtype())
+    out = tok[ids]
+    if tp:
+        out = coll.tp_out(torch.where(own, out, 0), tp)
+    return out.to(cfg.adtype())
 
 
 # ----------------------------- MLP (dense FFN) -----------------------------
@@ -173,15 +198,24 @@ def init_mlp(gen: torch.Generator, cfg: ModelConfig, device) -> MLP:
     return p
 
 
-def mlp(params: MLP, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def mlp_tp(cfg: ModelConfig) -> tuple:
+    """The live "tp" axes the dense MLP's ``d_ff`` columns split over on
+    the active mesh (none where they do not divide: the MLP computes
+    whole)."""
+    return ctx.tp_divides(cfg.d_ff)
+
+
+def mlp(params: MLP, x: torch.Tensor, cfg: ModelConfig, tp: tuple = ()
+        ) -> torch.Tensor:
     """Pre-norm residual SwiGLU or GELU feed-forward.  GELU is the tanh
     approximation in float32, ``jax.nn.gelu``'s default (PyTorch's default
-    is the erf form)."""
-    h = rms_norm(x, params.norm, cfg.norm_eps)
-    up = matmul(h, params.w_up.to(h.dtype), cfg)
+    is the erf form).  ``tp`` (``mlp_tp``): ``params`` hold this rank's
+    ``d_ff`` columns of ``w_gate`` / ``w_up`` and rows of ``w_down``."""
+    h = coll.tp_in(rms_norm(x, params.norm, cfg.norm_eps), tp)
+    up = matmul(h, params.w_up.to(h.dtype), cfg, tp)
     if cfg.act == "swiglu":
-        gate = matmul(h, params.w_gate.to(h.dtype), cfg)
+        gate = matmul(h, params.w_gate.to(h.dtype), cfg, tp)
         inner = F.silu(gate.to(torch.float32)).to(h.dtype) * up
     else:
         inner = F.gelu(up.to(torch.float32), approximate="tanh").to(h.dtype)
-    return x + matmul(inner, params.w_down.to(h.dtype), cfg)
+    return x + matmul(inner, params.w_down.to(h.dtype), cfg, tp, row=True)

@@ -31,9 +31,13 @@ out) the parameters are this rank's slices (``convert.shard_params``,
 by ``param_specs``), the caches this rank's slices by ``cache_specs``,
 and every entry point takes the whole batch on every rank and returns
 whole logits: it runs on this rank's dp rows when the batch divides over
-dp.  MoE layers run expert-parallel (``moe.moe_ffn_ep``) where the
-"model" axis divides the experts (``_use_ep``), else as the function of
-the whole batch.  ``decode_step(seq_shard=True)`` attends to a cache
+dp.  Where the "tp" axes divide them, self-attention, the dense MLP, the
+embedding and the head compute this rank's heads, columns and vocabulary
+(``parallel.ctx``'s docstring): ``_vocab_tp`` for the embedding and head,
+``attention.attention_tp``, ``layers.mlp_tp``; the loss is then a
+vocab-parallel cross-entropy.  MoE layers run expert-parallel
+(``moe.moe_ffn_ep``) where the "model" axis divides the experts
+(``_use_ep``), else as the function of the whole batch.  ``decode_step(seq_shard=True)`` attends to a cache
 whose sequence is split over the dp axes ("sp").
 """
 from __future__ import annotations
@@ -51,7 +55,8 @@ from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 from repro_torch.models.layers import (MLP, Embed, dense_init, embed_specs,
                                        embed_tokens, init_embed, init_mlp,
-                                       mlp, mlp_specs, param, rms_norm)
+                                       mlp, mlp_specs, mlp_tp, param,
+                                       rms_norm)
 from repro_torch.parallel import collectives as coll
 from repro_torch.parallel import ctx
 
@@ -228,16 +233,25 @@ def _all_rows(t: torch.Tensor, split: bool) -> torch.Tensor:
     return coll.all_gather(t, mesh, _dp(mesh), 0)
 
 
-def _entry(params):
+def _vocab_tp(cfg: ModelConfig) -> tuple:
+    """The live "tp" axes the embedding's rows and the head's columns
+    split over in the compute: those the vocabulary divides over (it is
+    then their spec at rest, ``embed_specs``)."""
+    return ctx.tp_divides(cfg.vocab)
+
+
+def _entry(params, cfg: ModelConfig):
     """The parameters an entry point reads whole (embedding, final norm,
-    head), gathered once; the layers are gathered as they run."""
+    head), gathered once, the vocabulary's "tp" split kept where it
+    computes vocab-parallel; the layers are gathered as they run."""
     if ctx.get_mesh() is None:
         return params
-    ns = types.SimpleNamespace(embed=coll.whole(params.embed),
+    keep = ("model",) if _vocab_tp(cfg) else ()
+    ns = types.SimpleNamespace(embed=coll.whole(params.embed, keep),
                                layers=params.layers,
                                final_norm=coll.materialize(params.final_norm))
     if hasattr(params, "lm_head"):
-        ns.lm_head = coll.materialize(params.lm_head)
+        ns.lm_head = coll.materialize(params.lm_head, keep)
     return ns
 
 
@@ -259,13 +273,16 @@ def _cache_map(fn, lc, shardings=None):
 
 
 def _cache_moved(lc, cfg: ModelConfig, batch: int, i: int, split: bool,
-                 to_rest: bool):
+                 to_rest: bool, heads: tuple = ()):
     """Layer ``i``'s cache between its layout at rest and the compute's
-    (every dim whole but the batch, split over dp when ``split``)."""
+    (every dim whole but the batch, split over dp when ``split``, and the
+    kv heads over ``heads``, a tensor-parallel layer's "tp" axes where its
+    kv heads divide)."""
     mesh = ctx.get_mesh()
     if mesh is None:
         return lc
-    compute = ctx.Sharding(mesh, (ctx.resolve_axis("dp"),) if split else ())
+    compute = ctx.Sharding(mesh, (ctx.resolve_axis("dp") if split else None,
+                                  None, heads or None))
     return _cache_map(
         lambda t, rest: (coll.reshard(t, compute, rest) if to_rest
                          else coll.reshard(t, rest, compute)),
@@ -281,14 +298,38 @@ def _batch(batch: int):
 
 # ------------------------------- blocks -------------------------------------
 
+def _attn_tp(spec: LayerSpec, cfg: ModelConfig) -> tuple:
+    """A self-attention layer's "tp" axes (``attention.attention_tp``);
+    none for SSM and cross-attention layers, which compute whole."""
+    if spec.kind == "ssm" or spec.cross_attn:
+        return ()
+    return A.attention_tp(cfg)
+
+
+def _kv_heads_tp(cfg: ModelConfig, tp: tuple) -> tuple:
+    """The axes a self-attention layer of "tp" axes ``tp`` splits its kv
+    heads (and so its cache in the compute) over: ``tp`` where the kv
+    heads divide over it."""
+    if tp and cfg.n_kv_heads % ctx.get_mesh().size(tp) == 0:
+        return tp
+    return ()
+
+
+def _local(module, tp: tuple):
+    """``module``'s parameters for its block: gathered whole, or with
+    their "tp" dims kept local for a tensor-parallel block."""
+    return coll.whole(module, keep=("model",) if tp else ())
+
+
 def _mixer_block(spec: LayerSpec, lp: Layer, x: torch.Tensor,
                  cfg: ModelConfig, image_embeds=None) -> torch.Tensor:
-    mixer = coll.whole(lp.mixer)
+    tp = _attn_tp(spec, cfg)
+    mixer = _local(lp.mixer, tp)
     if spec.kind == "ssm":
         return SSM.ssm_forward(mixer, x, cfg)[0]
     if spec.cross_attn:
         return A.cross_attention(mixer, x, image_embeds, cfg)[0]
-    return A.self_attention(mixer, x, cfg)[0]
+    return A.self_attention(mixer, x, cfg, tp=tp)[0]
 
 
 def _ffn_block(spec: LayerSpec, lp: Layer, x: torch.Tensor,
@@ -310,7 +351,8 @@ def _ffn_block(spec: LayerSpec, lp: Layer, x: torch.Tensor,
                                  full_capacity=full_capacity)
             return y.chunk(mesh.size(dp), 0)[mesh.index(dp)], aux
         return MOE.moe_ffn(ffn, x, cfg, full_capacity=full_capacity)
-    return mlp(coll.whole(lp.ffn), x, cfg), 0.0
+    tp = mlp_tp(cfg)
+    return mlp(_local(lp.ffn, tp), x, cfg, tp), 0.0
 
 
 def _layer(spec: LayerSpec, lp: Layer, x: torch.Tensor, cfg: ModelConfig,
@@ -354,17 +396,24 @@ def backbone(params: Transformer, x: torch.Tensor, cfg: ModelConfig,
 
 
 def logits_from_hidden(params: Transformer, x: torch.Tensor,
-                       cfg: ModelConfig) -> torch.Tensor:
+                       cfg: ModelConfig, gather: bool = True
+                       ) -> torch.Tensor:
     """The output head: the token embedding transposed when tied, else
     ``lm_head``; audio: (B, S, C, vocab) from the (C, D, vocab) head (a
     plain product under ``approx_matmul`` too, as the reference's
-    einsum)."""
+    einsum).  Vocab-parallel where ``_vocab_tp``: this rank's vocabulary
+    columns (x behind *f*), gathered whole unless not ``gather``."""
+    tp = _vocab_tp(cfg)
+    keep = ("model",) if tp else ()
+    x = coll.tp_in(x, tp)
     if cfg.frontend == "audio":
-        return torch.einsum("bsd,cdv->bscv", x,
-                            coll.materialize(params.lm_head).to(x.dtype))
-    if cfg.tie_embeddings:
-        return x @ coll.materialize(params.embed.tokens).to(x.dtype).T
-    return x @ coll.materialize(params.lm_head).to(x.dtype)
+        y = torch.einsum("bsd,cdv->bscv", x,
+                         coll.materialize(params.lm_head, keep).to(x.dtype))
+    elif cfg.tie_embeddings:
+        y = x @ coll.materialize(params.embed.tokens, keep).to(x.dtype).T
+    else:
+        y = x @ coll.materialize(params.lm_head, keep).to(x.dtype)
+    return coll.tp_gather(y, tp, -1) if gather else y
 
 
 def forward_train(params: Transformer, tokens: torch.Tensor,
@@ -375,9 +424,9 @@ def forward_train(params: Transformer, tokens: torch.Tensor,
     the reference's gradient is taken of, though it reports its first dp
     row's aux (ROADMAP, facts about the reference)."""
     with _batch(tokens.shape[0]) as split:
-        p = _entry(params)
+        p = _entry(params, cfg)
         x, aux = backbone(p, embed_tokens(p.embed, _rows(tokens, split),
-                                          cfg), cfg,
+                                          cfg, _vocab_tp(cfg)), cfg,
                           _rows(image_embeds, split))
         logits = _all_rows(logits_from_hidden(p, x, cfg), split)
         if split and isinstance(aux, torch.Tensor):
@@ -388,9 +437,26 @@ def forward_train(params: Transformer, tokens: torch.Tensor,
 
 def _ce_sum(params: Transformer, x: torch.Tensor, targets: torch.Tensor,
             cfg: ModelConfig) -> torch.Tensor:
-    logits = logits_from_hidden(params, x, cfg).to(torch.float32)
-    lse = torch.logsumexp(logits, dim=-1)
-    tgt = torch.gather(logits, -1, targets[..., None])[..., 0]
+    """Σ of the cross-entropy over ``targets``' positions.  Vocab-parallel
+    where ``_vocab_tp``: each rank's logits are its vocabulary columns,
+    and the max, the sum of exponentials and the target's logit are
+    reduced over "tp"."""
+    tp = _vocab_tp(cfg)
+    logits = logits_from_hidden(params, x, cfg, gather=False).to(
+        torch.float32)
+    if not tp:
+        lse = torch.logsumexp(logits, dim=-1)
+        tgt = torch.gather(logits, -1, targets[..., None])[..., 0]
+        return (lse - tgt).sum()
+    mesh = ctx.get_mesh()
+    m = coll.all_reduce(logits.detach().amax(-1), mesh, tp, "max")
+    lse = torch.log(coll.tp_out(torch.exp(logits - m[..., None]).sum(-1),
+                                tp)) + m
+    cols = logits.shape[-1]
+    local = targets - mesh.index(tp) * cols
+    own = (local >= 0) & (local < cols)
+    tgt = torch.gather(logits, -1, local.clamp(0, cols - 1)[..., None])
+    tgt = coll.tp_out(torch.where(own, tgt[..., 0], 0.0), tp)
     return (lse - tgt).sum()
 
 
@@ -406,9 +472,10 @@ def lm_loss(params: Transformer, tokens: torch.Tensor,
     share flows back through its own rows only (the parameters' gathers
     sum it over dp)."""
     with _batch(tokens.shape[0]) as split:
-        p = _entry(params)
+        p = _entry(params, cfg)
         tok, tgt = _rows(tokens, split), _rows(targets, split)
-        x, aux = backbone(p, embed_tokens(p.embed, tok, cfg), cfg,
+        x, aux = backbone(p, embed_tokens(p.embed, tok, cfg,
+                                          _vocab_tp(cfg)), cfg,
                           _rows(image_embeds, split))
         if not split:
             if cfg.loss_vocab_chunk and cfg.frontend != "audio":
@@ -486,25 +553,28 @@ def prefill(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig,
     B, S = tokens.shape[:2]
     pad = (max_len or S) - S
     with _batch(B) as split:
-        p = _entry(params)
-        x = embed_tokens(p.embed, _rows(tokens, split), cfg)
+        p = _entry(params, cfg)
+        x = embed_tokens(p.embed, _rows(tokens, split), cfg, _vocab_tp(cfg))
         img = _rows(image_embeds, split)
         cache = []
         for i, lp in enumerate(params.layers):
             spec = layer_spec(cfg, i)
-            mixer = coll.whole(lp.mixer)
+            tp = _attn_tp(spec, cfg)
+            mixer = _local(lp.mixer, tp)
             if spec.kind == "ssm":
                 x, lc = SSM.ssm_forward(mixer, x, cfg, return_state=True)
             elif spec.cross_attn:
                 x, (k, v) = A.cross_attention(mixer, x, img, cfg)
                 lc = {"k": k, "v": v}
             else:
-                x, (k, v) = A.self_attention(mixer, x, cfg)
+                x, (k, v) = A.self_attention(mixer, x, cfg, tp=tp,
+                                             all_kv=True)
                 if pad > 0:
                     k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
                     v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
                 lc = {"k": k, "v": v}
-            cache.append(_cache_moved(lc, cfg, B, i, split, to_rest=True))
+            cache.append(_cache_moved(lc, cfg, B, i, split, to_rest=True,
+                                      heads=_kv_heads_tp(cfg, tp)))
             x, _ = _ffn_block(spec, lp, x, cfg)
         x = rms_norm(x, p.final_norm, cfg.norm_eps)
         logits = _all_rows(logits_from_hidden(p, x[:, -1:], cfg), split)
@@ -534,18 +604,22 @@ def decode_step(params: Transformer, cache: list, tokens: torch.Tensor,
                              f"got {B}")
         seq = coll.live(mesh, ctx.axes_of("sp"))
     with _batch(B) as split:
-        p = _entry(params)
-        x = embed_tokens(p.embed, _rows(tokens, split), cfg)
+        p = _entry(params, cfg)
+        x = embed_tokens(p.embed, _rows(tokens, split), cfg, _vocab_tp(cfg))
         pos = _rows(pos, split)
         for i, lp in enumerate(params.layers):
             spec = layer_spec(cfg, i)
-            mixer = coll.whole(lp.mixer)
+            # the sequence-split decode computes every head
+            tp = _attn_tp(spec, cfg) if seq is None else ()
+            mixer = _local(lp.mixer, tp)
             if spec.kind != "ssm" and not spec.cross_attn and seq is not None:
                 lc = cache[i]
                 x, lc["k"], lc["v"] = A.decode_self_attention(
                     mixer, x, lc["k"], lc["v"], pos, cfg, seq_axes=seq)
             else:
-                lc = _cache_moved(cache[i], cfg, B, i, split, to_rest=False)
+                heads = _kv_heads_tp(cfg, tp)
+                lc = _cache_moved(cache[i], cfg, B, i, split, to_rest=False,
+                                  heads=heads)
                 if spec.kind == "ssm":
                     x, lc = SSM.ssm_decode_step(mixer, x, lc, cfg)
                 elif spec.cross_attn:
@@ -553,10 +627,10 @@ def decode_step(params: Transformer, cache: list, tokens: torch.Tensor,
                                              kv_cache=(lc["k"], lc["v"]))
                 else:
                     x, lc["k"], lc["v"] = A.decode_self_attention(
-                        mixer, x, lc["k"], lc["v"], pos, cfg)
+                        mixer, x, lc["k"], lc["v"], pos, cfg, tp=tp)
                 if not spec.cross_attn:
                     cache[i] = _cache_moved(lc, cfg, B, i, split,
-                                            to_rest=True)
+                                            to_rest=True, heads=heads)
             x, _ = _ffn_block(spec, lp, x, cfg, full_capacity=True)
         x = rms_norm(x, p.final_norm, cfg.norm_eps)
         logits = _all_rows(logits_from_hidden(p, x, cfg), split)

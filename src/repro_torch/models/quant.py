@@ -24,7 +24,13 @@ weight.  On a mesh whose batch is split over the dp axes
 over those axes before quantizing (the reference's GSPMD takes them over
 the global array), so a rank's rows quantize as in the unsharded run and
 its output rows are the unsharded ones bit for bit.  The weight arrives
-whole (``parallel.collectives.materialize``).
+with its "fsdp" dims gathered (``parallel.collectives.materialize``).  A
+tensor-parallel projection (``tp``) holds this rank's columns of the
+weight, or its rows (``row``: x then holds the same K columns).  The
+weight's range is all-reduced over "tp" as well; for a row-parallel one
+so is x's, and the int32 LUT sums, row sums and column sums are summed
+over "tp" before the float conversion, with K the whole K: the output is
+one rank's bit for bit.
 """
 from __future__ import annotations
 
@@ -100,25 +106,30 @@ def _dp_axes() -> tuple:
 
 
 def approx_matmul(x: torch.Tensor, w: torch.Tensor,
-                  lut: torch.Tensor | None = None) -> torch.Tensor:
+                  lut: torch.Tensor | None = None, tp: tuple = (),
+                  row: bool = False) -> torch.Tensor:
     """x: (..., K) float; w: (K, N) float -> (..., N) in x's dtype, every
-    product taken from the multiplier's LUT."""
+    product taken from the multiplier's LUT.  ``tp``: the live "tp" axes
+    that split ``w``'s columns (N is this rank's), or with ``row`` its
+    rows (K is this rank's; the output is the whole sum)."""
+    from repro_torch.parallel import collectives as coll
+    from repro_torch.parallel import ctx
     lut = get_multiplier_lut(x.device) if lut is None else lut
     lead, K = x.shape[:-1], x.shape[-1]
-    # off a split batch the call keeps the reference's signature, which
-    # substitutes of quantize_u8 (operand recorders in the tests and in
-    # chip_smoke.py) take
-    over = _dp_axes()
-    qx, sx, zx = (quantize_u8(x.reshape(-1, K), over=over) if over
-                  else quantize_u8(x.reshape(-1, K)))
-    qw, sw, zw = quantize_u8(w)
-    acc = kops.lut_matmul(qx, qw, lut).to(torch.float32)
+    qx, sx, zx = quantize_u8(x.reshape(-1, K),
+                             over=_dp_axes() + (tp if row else ()))
+    qw, sw, zw = quantize_u8(w, over=tp)
+    acc = kops.lut_matmul(qx, qw, lut)
     # exact zero-point correction: Σ(qx−zx)(qw−zw) = Σqx·qw − zw·Σqx −
     # zx·Σqw + K·zx·zw; only Σqx·qw goes through the (approximate) LUT,
     # the row / column sums would be adders on silicon
-    row = qx.sum(-1, keepdim=True, dtype=torch.int32).to(torch.float32)
-    col = qw.sum(0, keepdim=True, dtype=torch.int32).to(torch.float32)
-    corr = acc - zw * row - zx * col + K * zx * zw
+    row_sum = qx.sum(-1, keepdim=True, dtype=torch.int32)
+    col_sum = qw.sum(0, keepdim=True, dtype=torch.int32)
+    if row and tp:
+        acc, row_sum, col_sum = coll.sum_int32((acc, row_sum, col_sum), tp)
+        K = K * ctx.get_mesh().size(tp)
+    corr = (acc.to(torch.float32) - zw * row_sum.to(torch.float32)
+            - zx * col_sum.to(torch.float32) + K * zx * zw)
     y = sx * sw * corr
     return y.reshape(*lead, w.shape[1]).to(x.dtype)
 

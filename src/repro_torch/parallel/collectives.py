@@ -12,6 +12,10 @@ are ``torch.autograd.Function``s:
   sum whose result every rank uses), ``replicated`` (identity forward; the
   backward sums the gradient over the axes, where every rank computes its
   own part from a tensor they share);
+* the tensor-parallel operators over the active mesh's "tp" axes
+  (Megatron-LM's *f* and *g*, ``tp_in`` / ``tp_out``), ``tp_gather`` (a
+  column-parallel result made whole for every rank) and ``sum_int32`` (the
+  LUT path's integer partial sums);
 * ``materialize``: a parameter's whole value from its slice, per layer
   (``ctx``'s docstring says how the LM uses it);
 * ``place`` (this rank's slice of a whole tensor), ``gather`` (the whole
@@ -175,6 +179,59 @@ def replicated(x: torch.Tensor, mesh, axes) -> torch.Tensor:
     if not axes:
         return x
     return _Replicated.apply(x, mesh, axes)
+
+
+# --------------------------- tensor parallelism -----------------------------
+
+def tp_in(x: torch.Tensor, tp: tuple) -> torch.Tensor:
+    """*f*, before a column-parallel projection: ``x`` (the same on every
+    rank along ``tp``, the live "tp" axes) unchanged; the backward pass
+    sums its gradient over ``tp``, where each rank's columns took their
+    part of it."""
+    return replicated(x, ctx.get_mesh(), tp) if tp else x
+
+
+def tp_out(x: torch.Tensor, tp: tuple) -> torch.Tensor:
+    """*g*, after a row-parallel projection: the sum of every rank's partial
+    output over ``tp`` (a float narrower than float32 summed in float32,
+    rounded once); the backward pass hands the gradient of the whole sum
+    to every rank's part unchanged."""
+    return all_reduce(x, ctx.get_mesh(), tp) if tp else x
+
+
+class _GatherReplicated(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx_, x, mesh, axes, dim):
+        ctx_.args = (mesh, axes, dim)
+        return all_gather_raw(x, mesh, axes, dim)
+
+    @staticmethod
+    def backward(ctx_, g):
+        mesh, axes, dim = ctx_.args
+        return (g.chunk(mesh.size(axes), dim)[mesh.index(axes)].contiguous(),
+                None, None, None)
+
+
+def tp_gather(x: torch.Tensor, tp: tuple, dim: int) -> torch.Tensor:
+    """The blocks of a column-parallel result from every rank along ``tp``,
+    concatenated on ``dim`` (the whole logits every rank returns); the
+    backward pass keeps this rank's block of the gradient, which every
+    rank holds whole."""
+    return _GatherReplicated.apply(x, ctx.get_mesh(), tp, dim) if tp else x
+
+
+def sum_int32(parts: Sequence[torch.Tensor], tp: tuple) -> list:
+    """Each int32 tensor of ``parts`` summed over the ranks along ``tp``, in
+    one all-reduce of their concatenation (integer sums: exact in any
+    order, and wrap as one rank's would)."""
+    if any(p.dtype != torch.int32 for p in parts):
+        raise TypeError("sum_int32 takes int32 tensors")
+    if not tp:
+        return list(parts)
+    flat = all_reduce_raw(torch.cat([p.reshape(-1) for p in parts]),
+                          ctx.get_mesh(), tp)
+    return [t.view(p.shape) for t, p in
+            zip(flat.split([p.numel() for p in parts]), parts)]
 
 
 # ------------------------------ layouts -------------------------------------

@@ -34,27 +34,49 @@ How the LM computes on a mesh (``models/``, ``launch/steps.py``):
   * **At rest** every rank holds exactly the slice of each parameter,
     optimizer-state leaf, cache and batch that the reference's resolved
     spec gives its device (``Sharding.index``).
+  * **"tp" splits the compute** of the dense blocks, as the reference's
+    GSPMD partitions them by their specs (Megatron-LM's layout).  Each
+    "model" rank runs its ``n_heads / tp`` query heads (``wq`` column-
+    parallel, ``wo`` row-parallel), its ``d_ff / tp`` MLP columns
+    (``w_gate`` / ``w_up`` column-parallel, ``w_down`` row-parallel) and
+    its ``vocab / tp`` rows of the embedding and columns of the head.  The
+    residual stream and the norms are the same on every rank.  Before a
+    column-parallel projection stands *f* (``collectives.tp_in``: identity,
+    its backward an all-reduce), after a row-parallel one *g*
+    (``tp_out``: one all-reduce, float32 for narrower floats); the
+    embedding masks the ids outside its rows and sums over "tp"; serving
+    gathers the logits whole, the loss is a vocab-parallel cross-entropy
+    (the max and the sum of exponentials all-reduced).  kv heads: where
+    ``n_kv_heads`` divides over "tp", ``wk`` / ``wv`` are column-parallel
+    and the cache is heads-split at rest, as the rank computes it; where
+    "tp" is a multiple of ``n_kv_heads``, a rank's query heads share one kv
+    head, whose columns it takes from the gathered ``wk`` / ``wv`` (the
+    decode and prefill compute every kv head, since the cache at rest
+    splits head_dim over "tp" and is gathered as ``reshard`` does).  The
+    approximate multiplier (``models/quant.py``) stays one rank's bit for
+    bit: ranges are the whole tensor's and a row-parallel projection's
+    int32 sums are all-reduced before the float conversion.
+    ``tp_divides`` says which blocks split; a block whose dims do not
+    divide (phi4-mini's 24 heads at tp = 16), the SSM mixer and
+    cross-attention gather what "tp" splits and compute whole, the same
+    on every "model" rank, as before.
   * **Parameters are gathered per layer**: a block gathers every dim its
-    parameters' specs split ("fsdp" and "tp" alike) when it runs, inside
-    the remat region, so the backward pass gathers them again rather than
-    keeping them (``collectives.materialize``).  The gather's backward
-    sums the gradient over the dp axes (a reduce-scatter where a dim is
-    split over them) and keeps this rank's slice, so gradients are summed
-    over the data-parallel ranks only: the "tp" replicas compute the same
-    thing and are never summed twice.
+    parameters' specs split over the dp axes ("fsdp"), and over "tp" too
+    where it computes whole, when it runs, inside the remat region, so the
+    backward pass gathers them again rather than keeping them
+    (``collectives.materialize``; ``keep=("model",)`` leaves a
+    tensor-parallel block's "tp" dims local).  The gather's backward sums
+    the gradient over the dp axes (a reduce-scatter where a dim is split
+    over them) and keeps this rank's slice: a "tp"-split gradient is the
+    rank's own, and the replicas of a whole block's compute are never
+    summed twice.
   * **"dp" splits the batch**: an entry point takes the whole batch and
     runs on this rank's rows when the batch divides over dp
     (``batch_split``); the uint8 quantization of the approximate
     multiplier then takes its scale from the min and max over every rank's
-    rows (``models/quant.py``), so it is the unsharded scale.
-  * **"tp" does not split the compute** of attention, the dense MLP, the
-    SSM mixer or the vocabulary: a "tp" rank gathers what "tp" splits and
-    computes every head and column, the same as its "tp" peers.  True
-    tensor-parallel compute (each rank on its heads and columns, one
-    all-reduce after ``wo`` / ``w_down`` / ``w_out``, a vocab-parallel
-    embedding and head, the score all-reduce of an hd-split cache) is a
-    follow-up (ROADMAP Queue B).  Caches are gathered the same way where
-    a spec splits them (``reshard``), but for the sequence-split decode.
+    rows (``models/quant.py``), so it is the unsharded scale.  Caches are
+    gathered where a spec splits what the compute keeps whole
+    (``reshard``), but for the sequence-split decode.
   * **Expert parallelism** (``moe.moe_ffn_ep``) and the **sequence-split
     decode** (``attention.decode_self_attention(seq_axes=...)``) run with
     explicit collectives, as the reference's ``shard_map``s do: each
@@ -373,6 +395,25 @@ def axis_size(logical: str) -> int:
         return 1
     return math.prod(mesh.shape[a] for a in LOGICAL.get(logical, (logical,))
                      if a in mesh.axis_names)
+
+
+def tp_axes() -> tuple:
+    """The active mesh's "tp" axes of more than one rank (none with no
+    mesh): what a tensor-parallel block splits its compute over."""
+    mesh = get_mesh()
+    if mesh is None:
+        return ()
+    return tuple(a for a in axes_of("tp") if mesh.axis_size(a) > 1)
+
+
+def tp_divides(*dims: int) -> tuple:
+    """``tp_axes()`` when every one of ``dims`` (a block's query heads, kv
+    heads, ``d_ff``, vocabulary) divides over them, so each "model" rank
+    computes its slice of the block; else () (the block computes whole,
+    the same on every "model" rank)."""
+    tp = tp_axes()
+    n = math.prod(get_mesh().axis_size(a) for a in tp) if tp else 1
+    return tp if tp and all(d % n == 0 for d in dims) else ()
 
 
 def pod_count() -> int:

@@ -288,8 +288,8 @@ def _record_q(monkeypatch, module, to_np):
     seen = []
     orig = module.quantize_u8
 
-    def rec(x, axis=None):
-        out = orig(x, axis)
+    def rec(x, axis=None, **kw):
+        out = orig(x, axis, **kw)
         seen.append(to_np(out[0]).astype(np.int64))
         return out
     monkeypatch.setattr(module, "quantize_u8", rec)

@@ -4,6 +4,7 @@
   python3 tools/chip_phases.py dense
   python3 tools/chip_phases.py ssm
   python3 tools/chip_phases.py multi
+  python3 tools/chip_phases.py tp
   python3 tools/chip_phases.py ep_train --seqs 256,4096
   python3 tools/chip_phases.py tooling
   python3 tools/chip_phases.py figures [--width 6 --gens 300]
@@ -19,8 +20,9 @@ the build's ptxas report); ``dense`` (16, the dense configurations
 served: on the exact table phi4-mini's two attention paths part by more
 than the logits limit, which was set on the elite's table); ``ssm``
 (18's SSM configuration, mamba2-1.3b, served); ``multi`` (22, the
-multi-device LM); ``tooling`` (23, the dry run and the roofline against
-the card); ``figures`` (24, the paper's figure
+multi-device LM); ``tp`` (22 (e), tensor-parallel serving, then 23 (b'),
+its fake world's dry run against rank 0's counts); ``tooling`` (23, the
+dry run and the roofline against the card); ``figures`` (24, the paper's figure
 pipeline: ``--width`` / ``--gens`` set (b)'s width and generations);
 ``figures_pass`` (24 (b) alone into ``--out-dir``, kept: the figure
 JSONs, ``claims_summary.json`` and the grids' shards, at ``--width``,
@@ -60,6 +62,16 @@ def ep_train(device, tmp, lut, args) -> None:
                    f"outside the limit: {e}")
 
 
+def tp(device, tmp, lut, args) -> None:
+    """22 (e) alone, then 23 (b') against its rank 0's counts."""
+    one = CS.multi_tp_run(device, lut)
+    CS.free_card()
+    ranks = CS.multi_ranks(CS.multi_tp_rank, device, lut)
+    e = CS.multi_report_e(one, ranks, device, lut)
+    dry = CS.tool_workers((("tp", device),))[("tp", device)]["prefill"]
+    CS.tool_tp_check(dry, CS.tp_counts(e))
+
+
 def figures(device, tmp, lut, args) -> None:
     """Phase 24 alone, (b) at ``args.width`` / ``args.gens`` if given."""
     w, g, s = CS.FIG_DEPTH
@@ -84,6 +96,7 @@ PHASES = {"flash": lambda device, tmp, lut, args:
           "multi": lambda device, tmp, lut, args:
           CS.phase_multi(device, tmp, lut),
           "ep_train": ep_train,
+          "tp": tp,
           "figures": figures,
           "figures_pass": figures_pass,
           "tooling": lambda device, tmp, lut, args:

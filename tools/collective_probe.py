@@ -6,7 +6,9 @@ on the card, each in a ``--backend`` group (default gloo: NCCL refuses two
 ranks on one device), and prints one JSON line: for each call
 (``all_gather`` and ``reduce_scatter`` in their list forms,
 ``all_reduce`` of float32 / bfloat16 / int32 / uint8, MAX / MIN), whether
-it ran; then the median ms of
+it ran, and whether an int32 SUM (``collectives.sum_int32``, the LUT
+path's tensor-parallel sums) gives the host's sums, wrapping past 2^31 as
+int32 addition does; then the median ms of
 ``parallel.collectives``' all-gather, reduce-scatter and float32
 all-reduce at a few sizes, with the size over the time.
 
@@ -34,6 +36,7 @@ def _probe_rank(rank, world, reps):
     import torch.distributed as dist
     from repro_torch.launch import mesh as meshes
     from repro_torch.parallel import collectives as coll
+    from repro_torch.parallel import ctx
     torch.cuda.set_device(0)
     dev = torch.device("cuda", 0)
     out = {"calls": {}, "timing": {}}
@@ -62,6 +65,16 @@ def _probe_rank(rank, world, reps):
             out["calls"][name] = f"{type(e).__name__}: {str(e)[:120]}"
         dist.barrier()
     mesh = meshes.make_debug_mesh(n_data=world, n_model=1, device=dev)
+    # int32 SUM by value: every rank's block, some near 2^31 so the sum
+    # wraps; the host sums the same blocks in int64 and wraps them
+    blocks = [torch.randint(-2**31, 2**31 - 1, (1000,), dtype=torch.int32,
+                            generator=torch.Generator().manual_seed(r))
+              for r in range(world)]
+    want = (sum(b.long() for b in blocks) + 2**31) % 2**32 - 2**31
+    with ctx.use_mesh(mesh):
+        got = coll.sum_int32([blocks[rank].to(dev)], ("data",))[0]
+    out["calls"]["sum_int32 by value"] = (
+        "ok" if torch.equal(got.cpu().long(), want) else "wrong")
     for mb in SIZES_MB:
         n = mb * 2 ** 20 // 4 // world
         local = torch.full((n,), float(rank), device=dev)
