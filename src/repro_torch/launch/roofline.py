@@ -27,7 +27,12 @@ layer periods and the rest calibrated:
 
 which is exact because a model's periods are identical: every period runs
 the same ops at the same shapes, so every count is linear in the period
-count.  MODEL_FLOPS = 6·N(active)·tokens (train) or 2·N(active)·tokens is
+count.  So is a training step's peak memory (its saved activations grow a
+period at a time), but not a prefill's or a decode step's: they free each
+layer's temporaries before the next layer's, so only the arguments (and a
+prefill's outputs, the caches it returns, where its peak lies after them)
+grow with depth, and what the step holds above them is the deeper
+trace's (``served_memory``).  MODEL_FLOPS = 6·N(active)·tokens (train) or 2·N(active)·tokens is
 computed analytically per cell; the ratio MODEL_FLOPS / traced FLOPs shows
 recompute (remat), the blocked attention's masked blocks and the
 quantization glue.
@@ -273,11 +278,28 @@ def price(rec: dict) -> dict:
         "kernel": kernel_s}
 
 
+def served_memory(lin: dict, one: dict, two: dict, mode: str) -> dict:
+    """The ``memory_analysis`` of a prefill or decode step at full depth
+    from its linear extrapolation ``lin`` and the traces at 1 and 2
+    periods: the arguments from ``lin``, the peak above them from the
+    deeper trace.  A prefill's peak above its arguments that grew from 1
+    to 2 periods lies after the caches it returns pile up, so it grows
+    with them to full depth; one that did not grow lies before them (a
+    front end's or the first layer's temporaries) and stays.  A decode
+    step's new caches replace the ones it was given."""
+    temp = two["temp_size_in_bytes"]
+    if mode == "prefill" and temp > one["temp_size_in_bytes"]:
+        temp += lin["output_size_in_bytes"] - two["output_size_in_bytes"]
+    return dict(lin, temp_size_in_bytes=temp,
+                peak_bytes=lin["argument_size_in_bytes"] + temp)
+
+
 def analyze_cell(arch_id: str, shape: B.ShapeConfig, device="cuda",
                  cfg: B.ModelConfig | None = None, mesh=None) -> dict:
     """The roofline row of one cell on the single-pod mesh (or ``mesh``,
     in a world the caller made): counts at 1 and 2 periods, calibrated to
-    the model's depth, priced at the H100's peaks."""
+    the model's depth (a prefill's or decode step's peak memory by
+    ``served_memory``), priced at the H100's peaks."""
     from repro_torch.launch import dryrun   # it imports this module
     device = resolve_device(device)
     cfg = cfg or B.get_arch(arch_id).CONFIG
@@ -289,6 +311,10 @@ def analyze_cell(arch_id: str, shape: B.ShapeConfig, device="cuda",
         f2 = _measure(arch_id, shape, 2, mesh, device, cfg)
     n = cfg.n_periods
     total = dryrun.combine([f1, f2], [2 - n, n - 1])
+    if shape.mode != "train" and n >= 2:
+        total["memory_analysis"] = served_memory(
+            total["memory_analysis"], f1["memory_analysis"],
+            f2["memory_analysis"], shape.mode)
     terms = price(total)
     kernel_s = terms.pop("kernel")
     dominant = max(terms, key=terms.get)

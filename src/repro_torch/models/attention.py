@@ -27,8 +27,10 @@ its own kv heads; where "tp" is a multiple of ``n_kv_heads``, a rank's
 query heads share kv head ``h // (n_heads / n_kv_heads)``, which it
 projects from the gathered ``wk`` / ``wv`` (every kv head where a cache
 takes them: that cache splits head_dim at rest and is gathered whole).
-Query heads that do not divide (phi4-mini's 24 at tp = 16) keep the whole
-block on every rank, as cross-attention and the sequence-split decode do.
+Cross-attention splits the same way (``cross_attention(tp=)``), its K/V
+cache as the self-attention cache.  Query heads that do not divide
+(phi4-mini's 24 at tp = 16) keep the whole block on every rank, as the
+sequence-split decode does.
 """
 from __future__ import annotations
 
@@ -205,34 +207,55 @@ def attention_tp(cfg: ModelConfig) -> tuple:
     return ()
 
 
+def _kv_slice(cfg: ModelConfig, tp: tuple) -> slice:
+    """The kv heads this rank's query heads attend to in k / v that hold
+    every kv head (where "tp" is a multiple of the kv heads: the rank's
+    shared one), else all of them."""
+    mesh = ctx.get_mesh()
+    n = mesh.size(tp) if tp else 1
+    if cfg.n_kv_heads % n == 0:
+        return slice(None)
+    j = mesh.index(tp) * cfg.n_kv_heads // n
+    return slice(j, j + 1)
+
+
+def _kv(params: Attention, src: torch.Tensor, cfg: ModelConfig, tp: tuple,
+        all_kv: bool, rows: int, dtype: torch.dtype):
+    """(k, v, own) of ``src`` (..., d_model): k / v (rows, -1, kv heads,
+    hd) and the slice of their kv heads this rank's query heads attend to.
+    Where "tp" divides the kv heads, the rank's own (column-parallel);
+    where it is a multiple of them, every kv head when ``all_kv`` (for a
+    cache) or on the LUT (whose weight range is the whole weight's), else
+    only the rank's shared one, from the gathered ``wk`` / ``wv``."""
+    hd = cfg.hd
+    shape = lambda t: t.reshape(rows, -1, t.shape[-1] // hd, hd)
+    own = _kv_slice(cfg, tp)
+    if own == slice(None):
+        k, v = (shape(matmul(src, w.to(dtype), cfg, tp))
+                for w in (params.wk, params.wv))
+        return k, v, own
+    # the whole columns; the backward pass sums each rank's part over tp
+    mesh = ctx.get_mesh()
+    wk, wv = (coll.all_gather(w, mesh, tp, 1) for w in (params.wk,
+                                                         params.wv))
+    if all_kv or cfg.approx_matmul:
+        k, v = (shape(matmul(src, w.to(dtype), cfg)) for w in (wk, wv))
+        return k, v, own
+    cols = slice(own.start * hd, own.stop * hd)
+    k, v = (shape(matmul(src, w[:, cols].to(dtype), cfg)) for w in (wk, wv))
+    return k, v, slice(None)
+
+
 def _qkv(params: Attention, h: torch.Tensor, cfg: ModelConfig, tp: tuple,
          all_kv: bool):
     """(q, k, v, own): q of this rank's query heads (all without ``tp``),
     k / v (B, S, kv heads, hd) and the slice of their kv heads the query
-    heads attend to.  Where "tp" is a multiple of the kv heads, k / v hold
-    every kv head when ``all_kv`` (for a cache) or on the LUT (whose
-    weight range is the whole weight's), else only the rank's own."""
+    heads attend to (``_kv``)."""
     B, S, _ = h.shape
-    hd = cfg.hd
-    mesh = ctx.get_mesh()
-    n = mesh.size(tp) if tp else 1
+    n = ctx.get_mesh().size(tp) if tp else 1
     q = matmul(h, params.wq.to(h.dtype), cfg, tp).reshape(
-        B, S, cfg.n_heads // n, hd)
-    if cfg.n_kv_heads % n == 0:
-        k, v = (matmul(h, w.to(h.dtype), cfg, tp).reshape(B, S, -1, hd)
-                for w in (params.wk, params.wv))
-        return q, k, v, slice(None)
-    j = mesh.index(tp) * cfg.n_kv_heads // n
-    # the whole columns; the backward pass sums each rank's part over tp
-    wk, wv = (coll.all_gather(w, mesh, tp, 1) for w in (params.wk,
-                                                         params.wv))
-    if all_kv or cfg.approx_matmul:
-        k, v = (matmul(h, w.to(h.dtype), cfg).reshape(B, S, -1, hd)
-                for w in (wk, wv))
-        return q, k, v, slice(j, j + 1)
-    k, v = (matmul(h, w[:, j * hd:(j + 1) * hd].to(h.dtype), cfg).reshape(
-        B, S, 1, hd) for w in (wk, wv))
-    return q, k, v, slice(None)
+        B, S, cfg.n_heads // n, cfg.hd)
+    return (q,) + _kv(params, h, cfg, tp, all_kv, B, h.dtype)
 
 
 def self_attention(params: Attention, x: torch.Tensor, cfg: ModelConfig,
@@ -260,7 +283,8 @@ def self_attention(params: Attention, x: torch.Tensor, cfg: ModelConfig,
 
 def cross_attention(params: Attention, x: torch.Tensor,
                     kv_embeds: torch.Tensor | None, cfg: ModelConfig,
-                    kv_cache: tuple | None = None):
+                    kv_cache: tuple | None = None, tp: tuple = (),
+                    all_kv: bool = False):
     """Pre-norm gated cross-attention to front-end embeddings (no RoPE, not
     causal): (x + tanh(gate)·out, (k, v)).
 
@@ -269,21 +293,25 @@ def cross_attention(params: Attention, x: torch.Tensor,
     not normed) and reshaped to (B, B'·N / B, Hkv, hd) with x's B, as the
     reference reshapes them (a microbatch given the whole batch's
     embeddings folds B' / B images into each row's keys), or read from
-    ``kv_cache`` = (k, v)."""
+    ``kv_cache`` = (k, v).  ``tp`` (``attention_tp``): this rank's query
+    heads (``wq`` column-parallel, ``wo`` row-parallel with *g*, the gate
+    after it) and kv heads as self-attention's (``_kv``; every one with
+    ``all_kv``, and so in a cache that holds them all).  The embeddings
+    are inputs: no gradient flows to them."""
     B, S, _ = x.shape
     hd = cfg.hd
-    h = rms_norm(x, params.norm, cfg.norm_eps)
-    q = matmul(h, params.wq.to(h.dtype), cfg).reshape(B, S, cfg.n_heads, hd)
+    h = coll.tp_in(rms_norm(x, params.norm, cfg.norm_eps), tp)
+    n = ctx.get_mesh().size(tp) if tp else 1
+    q = matmul(h, params.wq.to(h.dtype), cfg, tp).reshape(
+        B, S, cfg.n_heads // n, hd)
     if kv_cache is not None:
         k, v = kv_cache
+        own = _kv_slice(cfg, tp)
     else:
-        k = matmul(kv_embeds, params.wk.to(h.dtype), cfg).reshape(
-            B, -1, cfg.n_kv_heads, hd)
-        v = matmul(kv_embeds, params.wv.to(h.dtype), cfg).reshape(
-            B, -1, cfg.n_kv_heads, hd)
-    out = run_attention(q, k, v, cfg, causal=False)
-    out = matmul(out.reshape(B, S, cfg.n_heads * hd),
-                 params.wo.to(h.dtype), cfg)
+        k, v, own = _kv(params, kv_embeds, cfg, tp, all_kv, B, h.dtype)
+    out = run_attention(q, k[:, :, own], v[:, :, own], cfg, causal=False)
+    out = matmul(out.reshape(B, S, q.shape[2] * hd),
+                 params.wo.to(h.dtype), cfg, tp, row=True)
     gate = torch.tanh(params.gate.to(torch.float32)).to(out.dtype)
     return x + gate * out, (k, v)
 

@@ -31,11 +31,12 @@ out) the parameters are this rank's slices (``convert.shard_params``,
 by ``param_specs``), the caches this rank's slices by ``cache_specs``,
 and every entry point takes the whole batch on every rank and returns
 whole logits: it runs on this rank's dp rows when the batch divides over
-dp.  Where the "tp" axes divide them, self-attention, the dense MLP, the
-embedding and the head compute this rank's heads, columns and vocabulary
-(``parallel.ctx``'s docstring): ``_vocab_tp`` for the embedding and head,
-``attention.attention_tp``, ``layers.mlp_tp``; the loss is then a
-vocab-parallel cross-entropy.  MoE layers run expert-parallel
+dp.  Where the "tp" axes divide them, self- and cross-attention, the SSM
+mixer, the dense MLP, the embedding and the head compute this rank's
+heads, columns and vocabulary (``parallel.ctx``'s docstring): ``_vocab_tp``
+for the embedding and head, ``_mixer_tp`` (``attention.attention_tp``,
+``ssm.ssm_tp``), ``layers.mlp_tp``; the loss is then a vocab-parallel
+cross-entropy.  MoE layers run expert-parallel
 (``moe.moe_ffn_ep``) where the "model" axis divides the experts
 (``_use_ep``), else as the function of the whole batch.  ``decode_step(seq_shard=True)`` attends to a cache
 whose sequence is split over the dp axes ("sp").
@@ -272,21 +273,36 @@ def _cache_map(fn, lc, shardings=None):
             for k in lc}
 
 
-def _cache_moved(lc, cfg: ModelConfig, batch: int, i: int, split: bool,
-                 to_rest: bool, heads: tuple = ()):
-    """Layer ``i``'s cache between its layout at rest and the compute's
-    (every dim whole but the batch, split over dp when ``split``, and the
-    kv heads over ``heads``, a tensor-parallel layer's "tp" axes where its
-    kv heads divide)."""
+def _compute_layout(lc, cfg: ModelConfig, split: bool, tp: tuple):
+    """One layer's cache layout in the compute, of a layer of "tp" axes
+    ``tp`` (``_mixer_tp``): the batch over dp when ``split``; a KV dict's
+    kv heads over ``tp`` where they divide (``_kv_heads_tp``), every other
+    dim whole; an ``SSMState`` as the SSM mixer of ``tp`` computes it,
+    ``conv_x``'s channels and ``ssm``'s heads over ``tp``, ``conv_bc``
+    whole."""
     mesh = ctx.get_mesh()
-    if mesh is None:
+    dp = ctx.resolve_axis("dp") if split else None
+    if isinstance(lc, SSM.SSMState):
+        return SSM.SSMState(conv_x=ctx.Sharding(mesh, (dp, None, tp or None)),
+                            conv_bc=ctx.Sharding(mesh, (dp,)),
+                            ssm=ctx.Sharding(mesh, (dp, tp or None)))
+    heads = _kv_heads_tp(cfg, tp)
+    return {k: ctx.Sharding(mesh, (dp, None, heads or None)) for k in lc}
+
+
+def _cache_moved(lc, cfg: ModelConfig, batch: int, i: int, split: bool,
+                 to_rest: bool, tp: tuple = ()):
+    """Layer ``i``'s cache between its layout at rest and the compute's
+    (``_compute_layout``, per leaf)."""
+    if ctx.get_mesh() is None:
         return lc
-    compute = ctx.Sharding(mesh, (ctx.resolve_axis("dp") if split else None,
-                                  None, heads or None))
-    return _cache_map(
-        lambda t, rest: (coll.reshard(t, compute, rest) if to_rest
-                         else coll.reshard(t, rest, compute)),
-        lc, layer_cache_shardings(cfg, batch, i))
+    compute = _compute_layout(lc, cfg, split, tp)
+    rest = layer_cache_shardings(cfg, batch, i)
+    src, dst = (compute, rest) if to_rest else (rest, compute)
+    if isinstance(lc, SSM.SSMState):
+        return SSM.SSMState(*(coll.reshard(t, a, b)
+                              for t, a, b in zip(lc, src, dst)))
+    return {k: coll.reshard(lc[k], src[k], dst[k]) for k in lc}
 
 
 @contextlib.contextmanager
@@ -298,18 +314,19 @@ def _batch(batch: int):
 
 # ------------------------------- blocks -------------------------------------
 
-def _attn_tp(spec: LayerSpec, cfg: ModelConfig) -> tuple:
-    """A self-attention layer's "tp" axes (``attention.attention_tp``);
-    none for SSM and cross-attention layers, which compute whole."""
-    if spec.kind == "ssm" or spec.cross_attn:
-        return ()
+def _mixer_tp(spec: LayerSpec, cfg: ModelConfig) -> tuple:
+    """A layer's mixer's "tp" axes: ``ssm.ssm_tp`` for an SSM layer,
+    ``attention.attention_tp`` for self- and cross-attention; none where
+    its dims do not divide (it computes whole)."""
+    if spec.kind == "ssm":
+        return SSM.ssm_tp(cfg)
     return A.attention_tp(cfg)
 
 
 def _kv_heads_tp(cfg: ModelConfig, tp: tuple) -> tuple:
-    """The axes a self-attention layer of "tp" axes ``tp`` splits its kv
-    heads (and so its cache in the compute) over: ``tp`` where the kv
-    heads divide over it."""
+    """The axes an attention layer of "tp" axes ``tp`` splits its kv heads
+    (and so its cache in the compute) over: ``tp`` where the kv heads
+    divide over it."""
     if tp and cfg.n_kv_heads % ctx.get_mesh().size(tp) == 0:
         return tp
     return ()
@@ -323,12 +340,12 @@ def _local(module, tp: tuple):
 
 def _mixer_block(spec: LayerSpec, lp: Layer, x: torch.Tensor,
                  cfg: ModelConfig, image_embeds=None) -> torch.Tensor:
-    tp = _attn_tp(spec, cfg)
+    tp = _mixer_tp(spec, cfg)
     mixer = _local(lp.mixer, tp)
     if spec.kind == "ssm":
-        return SSM.ssm_forward(mixer, x, cfg)[0]
+        return SSM.ssm_forward(mixer, x, cfg, tp=tp)[0]
     if spec.cross_attn:
-        return A.cross_attention(mixer, x, image_embeds, cfg)[0]
+        return A.cross_attention(mixer, x, image_embeds, cfg, tp=tp)[0]
     return A.self_attention(mixer, x, cfg, tp=tp)[0]
 
 
@@ -559,12 +576,14 @@ def prefill(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig,
         cache = []
         for i, lp in enumerate(params.layers):
             spec = layer_spec(cfg, i)
-            tp = _attn_tp(spec, cfg)
+            tp = _mixer_tp(spec, cfg)
             mixer = _local(lp.mixer, tp)
             if spec.kind == "ssm":
-                x, lc = SSM.ssm_forward(mixer, x, cfg, return_state=True)
+                x, lc = SSM.ssm_forward(mixer, x, cfg, return_state=True,
+                                        tp=tp)
             elif spec.cross_attn:
-                x, (k, v) = A.cross_attention(mixer, x, img, cfg)
+                x, (k, v) = A.cross_attention(mixer, x, img, cfg, tp=tp,
+                                              all_kv=True)
                 lc = {"k": k, "v": v}
             else:
                 x, (k, v) = A.self_attention(mixer, x, cfg, tp=tp,
@@ -574,7 +593,7 @@ def prefill(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig,
                     v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
                 lc = {"k": k, "v": v}
             cache.append(_cache_moved(lc, cfg, B, i, split, to_rest=True,
-                                      heads=_kv_heads_tp(cfg, tp)))
+                                      tp=tp))
             x, _ = _ffn_block(spec, lp, x, cfg)
         x = rms_norm(x, p.final_norm, cfg.norm_eps)
         logits = _all_rows(logits_from_hidden(p, x[:, -1:], cfg), split)
@@ -609,28 +628,30 @@ def decode_step(params: Transformer, cache: list, tokens: torch.Tensor,
         pos = _rows(pos, split)
         for i, lp in enumerate(params.layers):
             spec = layer_spec(cfg, i)
+            seq_attn = (spec.kind != "ssm" and not spec.cross_attn
+                        and seq is not None)
             # the sequence-split decode computes every head
-            tp = _attn_tp(spec, cfg) if seq is None else ()
+            tp = () if seq_attn else _mixer_tp(spec, cfg)
             mixer = _local(lp.mixer, tp)
-            if spec.kind != "ssm" and not spec.cross_attn and seq is not None:
+            if seq_attn:
                 lc = cache[i]
                 x, lc["k"], lc["v"] = A.decode_self_attention(
                     mixer, x, lc["k"], lc["v"], pos, cfg, seq_axes=seq)
             else:
-                heads = _kv_heads_tp(cfg, tp)
                 lc = _cache_moved(cache[i], cfg, B, i, split, to_rest=False,
-                                  heads=heads)
+                                  tp=tp)
                 if spec.kind == "ssm":
-                    x, lc = SSM.ssm_decode_step(mixer, x, lc, cfg)
+                    x, lc = SSM.ssm_decode_step(mixer, x, lc, cfg, tp=tp)
                 elif spec.cross_attn:
                     x, _ = A.cross_attention(mixer, x, None, cfg,
-                                             kv_cache=(lc["k"], lc["v"]))
+                                             kv_cache=(lc["k"], lc["v"]),
+                                             tp=tp)
                 else:
                     x, lc["k"], lc["v"] = A.decode_self_attention(
                         mixer, x, lc["k"], lc["v"], pos, cfg, tp=tp)
                 if not spec.cross_attn:
                     cache[i] = _cache_moved(lc, cfg, B, i, split,
-                                            to_rest=True, heads=heads)
+                                            to_rest=True, tp=tp)
             x, _ = _ffn_block(spec, lp, x, cfg, full_capacity=True)
         x = rms_norm(x, p.final_norm, cfg.norm_eps)
         logits = _all_rows(logits_from_hidden(p, x, cfg), split)

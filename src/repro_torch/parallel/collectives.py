@@ -31,7 +31,8 @@ dtype narrower than float32 reduce in float32 and round once.
 
 ``STATS`` holds, while ``timed`` is on, the backend calls' host seconds,
 each call between two synchronizations of its device (so it excludes the
-compute queued before it): what a step spends in collectives.
+compute queued before it), and their number: what a step spends in
+collectives.
 """
 from __future__ import annotations
 
@@ -47,13 +48,14 @@ from repro_torch.parallel import ctx
 
 OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
        "min": dist.ReduceOp.MIN}
-STATS = {"seconds": 0.0, "timed": False}
+STATS = {"seconds": 0.0, "calls": 0, "timed": False}
 
 
 @contextlib.contextmanager
 def timed():
     """Within the block ``STATS["seconds"]`` accumulates each collective's
-    host time, the device synchronized before and after it."""
+    host time, the device synchronized before and after it, and
+    ``STATS["calls"]`` counts them."""
     old, STATS["timed"] = STATS["timed"], True
     try:
         yield STATS
@@ -72,6 +74,7 @@ def _call(fn, t: torch.Tensor, *args, **kw) -> None:
     if t.is_cuda:
         torch.cuda.synchronize(t.device)
     STATS["seconds"] += time.perf_counter() - t0
+    STATS["calls"] += 1
 
 
 def _axes(mesh, axes) -> tuple:

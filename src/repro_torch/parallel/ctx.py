@@ -34,10 +34,14 @@ How the LM computes on a mesh (``models/``, ``launch/steps.py``):
   * **At rest** every rank holds exactly the slice of each parameter,
     optimizer-state leaf, cache and batch that the reference's resolved
     spec gives its device (``Sharding.index``).
-  * **"tp" splits the compute** of the dense blocks, as the reference's
-    GSPMD partitions them by their specs (Megatron-LM's layout).  Each
-    "model" rank runs its ``n_heads / tp`` query heads (``wq`` column-
-    parallel, ``wo`` row-parallel), its ``d_ff / tp`` MLP columns
+  * **"tp" splits the compute** of every block whose dims divide, as the
+    reference's GSPMD partitions them by their specs (Megatron-LM's
+    layout).  Each "model" rank runs its ``n_heads / tp`` query heads of
+    self- and cross-attention (``wq`` column-parallel, ``wo`` row-
+    parallel; a cross layer's gate after the sum), its ``H / tp`` heads
+    of the SSM mixer (``w_z``, ``w_x``, ``w_dt`` column-parallel, its
+    slices of the conv, ``dt_bias``, ``a_log``, ``d_skip`` and
+    ``gate_norm``, ``w_out`` row-parallel), its ``d_ff / tp`` MLP columns
     (``w_gate`` / ``w_up`` column-parallel, ``w_down`` row-parallel) and
     its ``vocab / tp`` rows of the embedding and columns of the head.  The
     residual stream and the norms are the same on every rank.  Before a
@@ -46,20 +50,25 @@ How the LM computes on a mesh (``models/``, ``launch/steps.py``):
     (``tp_out``: one all-reduce, float32 for narrower floats); the
     embedding masks the ids outside its rows and sums over "tp"; serving
     gathers the logits whole, the loss is a vocab-parallel cross-entropy
-    (the max and the sum of exponentials all-reduced).  kv heads: where
-    ``n_kv_heads`` divides over "tp", ``wk`` / ``wv`` are column-parallel
-    and the cache is heads-split at rest, as the rank computes it; where
-    "tp" is a multiple of ``n_kv_heads``, a rank's query heads share one kv
-    head, whose columns it takes from the gathered ``wk`` / ``wv`` (the
-    decode and prefill compute every kv head, since the cache at rest
-    splits head_dim over "tp" and is gathered as ``reshard`` does).  The
-    approximate multiplier (``models/quant.py``) stays one rank's bit for
-    bit: ranges are the whole tensor's and a row-parallel projection's
-    int32 sums are all-reduced before the float conversion.
-    ``tp_divides`` says which blocks split; a block whose dims do not
-    divide (phi4-mini's 24 heads at tp = 16), the SSM mixer and
-    cross-attention gather what "tp" splits and compute whole, the same
-    on every "model" rank, as before.
+    (the max and the sum of exponentials all-reduced).  The SSM mixer's
+    B / C branch (``w_bc``, ``conv_bc_w``, replicated) runs whole on every
+    rank with *f* after its conv, and its gate norm sums its squares over
+    "tp" (``ssm.py``).  kv heads: where ``n_kv_heads`` divides over "tp",
+    ``wk`` / ``wv`` are column-parallel and the cache (self or cross) is
+    heads-split at rest, as the rank computes it; where "tp" is a multiple
+    of ``n_kv_heads``, a rank's query heads share one kv head, whose
+    columns it takes from the gathered ``wk`` / ``wv`` (the decode and
+    prefill compute every kv head, since the cache at rest splits
+    head_dim over "tp" and is gathered as ``reshard`` does).  An SSM
+    layer's state stays split as at rest: ``conv_x``'s channels and the
+    state's heads.  The approximate multiplier (``models/quant.py``) stays
+    one rank's bit for bit at each projection: ranges are the whole
+    tensor's and a row-parallel projection's int32 sums are all-reduced
+    before the float conversion (the SSM's gate norm, summed over "tp" in
+    another order, rounds otherwise).  ``tp_divides`` says which blocks
+    split; a block whose dims do not divide (phi4-mini's 24 heads at tp =
+    16) gathers what "tp" splits and computes whole, the same on every
+    "model" rank.
   * **Parameters are gathered per layer**: a block gathers every dim its
     parameters' specs split over the dp axes ("fsdp"), and over "tp" too
     where it computes whole, when it runs, inside the remat region, so the

@@ -152,8 +152,8 @@ def test_pallas_raises_at_1600_image_tokens():
 def _skip_cross(real):
     """A mutant of ``attention.cross_attention`` that computes K and V but
     leaves x as it is (the block skipped)."""
-    return lambda p, x, kv, cfg, kv_cache=None: (
-        x, real(p, x, kv, cfg, kv_cache)[1])
+    return lambda p, x, kv, cfg, kv_cache=None, **kw: (
+        x, real(p, x, kv, cfg, kv_cache, **kw)[1])
 
 
 @pytest.mark.parametrize("gate", [GATE, 0.0])

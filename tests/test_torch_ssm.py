@@ -123,6 +123,38 @@ def test_ssd_chunked(chunk):
     _close(state, state_ref, NAIVE_TOL, NAIVE_TOL)
 
 
+def test_ssd_backward_where_the_triangle_overflows():
+    """A chunk whose masked triangle overflows exp (seg up to ~760 here;
+    mamba2-1.3b's chunk of 256 reaches thousands at its init): the forward
+    is the reference's, but the reference's ``where(tri, exp(seg), 0)``
+    takes inf · 0 = NaN into the gradients of dt and A, where the port's
+    (the exp of the masked seg) are finite and equal the reference's at a
+    chunk of 8, which does not overflow (ROADMAP, facts about the
+    reference, 8)."""
+    rng = np.random.default_rng(4)
+    xh, Bm, Cm = (rng.normal(size=s).astype(np.float32)
+                  for s in ((1, 64, 2, 4), (1, 64, 1, 4), (1, 64, 1, 4)))
+    dt = rng.uniform(0.1, 0.2, size=(1, 64, 2)).astype(np.float32)
+    A = np.array([-40.0, -60.0], np.float32)
+    wy = rng.normal(size=(1, 64, 2, 4)).astype(np.float32)
+
+    def ref_grads(chunk):
+        loss = lambda d, a: jnp.sum(JSSM._ssd_chunked(
+            jnp.asarray(xh), d, a, jnp.asarray(Bm), jnp.asarray(Cm),
+            chunk)[0] * wy)
+        return [np.asarray(g) for g in jax.grad(loss, (0, 1))(
+            jnp.asarray(dt), jnp.asarray(A))]
+    d, a = _t(dt).requires_grad_(), _t(A).requires_grad_()
+    y, _ = TSSM._ssd_chunked(_t(xh), d, a, _t(Bm), _t(Cm), 64)
+    _close(y, JSSM._ssd_chunked(*map(jnp.asarray, (xh, dt, A, Bm, Cm)),
+                                64)[0])
+    (y * _t(wy)).sum().backward()
+    assert not all(np.isfinite(g).all() for g in ref_grads(64))
+    for got, want in zip((d.grad, a.grad), ref_grads(8)):
+        assert bool(torch.isfinite(got).all())
+        _close(got, want, NAIVE_TOL, NAIVE_TOL)
+
+
 def test_ssd_chunked_carries_an_initial_state():
     xh, dt, A, Bm, Cm = map(_t, _ssd_inputs(S=32, seed=3))
     y, s = TSSM._ssd_chunked(xh, dt, A, Bm, Cm, 8)

@@ -290,6 +290,43 @@ def test_period_calibration_is_exact():
                                   key=lambda k: row[k + "_s"])
 
 
+# a served cell's peak at full depth against its 1- and 2-period traces:
+# the terms are integer byte counts of the same allocations, so the
+# extrapolation should hit the full-depth dry run; 1% allows for an
+# allocation order that moves the peak by a few tensors
+SERVED_PEAK_RTOL = 0.01
+
+
+@pytest.mark.parametrize("arch,mode", [("llama3_2_1b", m) for m in MODES]
+                         + [("musicgen_large", "prefill")])
+def test_extrapolated_peak_against_a_full_depth_dry_run(arch, mode):
+    """``analyze_cell``'s peak a rank at 4 periods on a fake (1, 4) world
+    within SERVED_PEAK_RTOL of a dry run of the same cell at 4 periods:
+    the reduced llama (its 2 kv heads under tp = 4: the cache at rest
+    splits head_dim, so the first layer's temporaries differ from the
+    others'; the linear extrapolation read 12.6% high in decode) and
+    musicgen's prefill, whose peak comes before its caches pile up.  A
+    training step's peak grows a period at a time, a prefill's and a
+    decode step's only by their arguments and, where its peak comes last,
+    a prefill's caches."""
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import roofline as RL
+    from repro_torch.launch.mesh import make_debug_mesh
+    cfg = _reduced(arch)
+    cfg = dataclasses.replace(cfg, n_layers=4 * len(cfg.period))
+    shape = _shape(mode)
+    with D.fake_world(4):
+        mesh = make_debug_mesh(1, 4, device="cpu")
+        row = RL.analyze_cell(arch, shape, "cpu", cfg, mesh)
+        whole = D.trace_cell(arch, shape, mesh, torch.device("cpu"), cfg)
+    want = whole["memory_analysis"]
+    got = row["counts"]["memory_analysis"]
+    assert got["argument_size_in_bytes"] == want["argument_size_in_bytes"]
+    assert row["peak_bytes_per_chip"] == got["peak_bytes"]
+    np.testing.assert_allclose(got["peak_bytes"], want["peak_bytes"],
+                               rtol=SERVED_PEAK_RTOL)
+
+
 def test_sequence_split_decode_traces():
     """long_500k's path, a decode batch smaller than dp (the reduced jamba,
     batch 1 on a fake (2, 2) world): the sequence-split decode traces (its

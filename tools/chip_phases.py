@@ -5,6 +5,7 @@
   python3 tools/chip_phases.py ssm
   python3 tools/chip_phases.py multi
   python3 tools/chip_phases.py tp
+  python3 tools/chip_phases.py mixers
   python3 tools/chip_phases.py ep_train --seqs 256,4096
   python3 tools/chip_phases.py tooling
   python3 tools/chip_phases.py figures [--width 6 --gens 300]
@@ -21,7 +22,9 @@ served: on the exact table phi4-mini's two attention paths part by more
 than the logits limit, which was set on the elite's table); ``ssm``
 (18's SSM configuration, mamba2-1.3b, served); ``multi`` (22, the
 multi-device LM); ``tp`` (22 (e), tensor-parallel serving, then 23 (b'),
-its fake world's dry run against rank 0's counts); ``tooling`` (23, the
+its fake world's dry run against rank 0's counts); ``mixers`` (22 (f) and
+(g), the SSM mixer and cross-attention tensor-parallel: mamba2-1.3b and
+llama3.2-vision-11b served, mamba2 trained); ``tooling`` (23, the
 dry run and the roofline against the card); ``figures`` (24, the paper's figure
 pipeline: ``--width`` / ``--gens`` set (b)'s width and generations);
 ``figures_pass`` (24 (b) alone into ``--out-dir``, kept: the figure
@@ -97,6 +100,8 @@ PHASES = {"flash": lambda device, tmp, lut, args:
           CS.phase_multi(device, tmp, lut),
           "ep_train": ep_train,
           "tp": tp,
+          "mixers": lambda device, tmp, lut, args:
+          CS.phase_multi_mixers(device, lut),
           "figures": figures,
           "figures_pass": figures_pass,
           "tooling": lambda device, tmp, lut, args:
