@@ -26,11 +26,24 @@ self-attention and its decode run this rank's ``n_heads / tp`` query heads:
 its own kv heads; where "tp" is a multiple of ``n_kv_heads``, a rank's
 query heads share kv head ``h // (n_heads / n_kv_heads)``, which it
 projects from the gathered ``wk`` / ``wv`` (every kv head where a cache
-takes them: that cache splits head_dim at rest and is gathered whole).
-Cross-attention splits the same way (``cross_attention(tp=)``), its K/V
-cache as the self-attention cache.  Query heads that do not divide
-(phi4-mini's 24 at tp = 16) keep the whole block on every rank, as the
-sequence-split decode does.
+takes them).  Cross-attention splits the same way (``cross_attention(tp=
+)``), its K/V cache as the self-attention cache.  Query heads that do not
+divide (phi4-mini's 24 at tp = 16) keep the whole block on every rank, as
+the sequence-split decode does.
+
+Where the kv heads do not divide over "tp" and head_dim does, the cache
+splits head_dim at rest (``parallel.ctx.hd_split``), and the decode
+computes on that split whether or not the query heads divide
+(``decode_self_attention(hd_axes=)``, the reference's ``decode_self_attention(
+kv_spec=("dp", None, None, "tp"))``): q, k and v column-parallel and
+gathered whole (B·(H + 2·Hkv)·hd elements), RoPE on the whole head_dim
+(rotate-half pairs dim i with i + hd / 2, another rank's), each rank's
+head_dim slice of k and v written into its cache slice, the scores this
+rank's partial sums, all-reduced in float32 over "tp" (B·H·S), the mask
+and softmax on every rank, p·v on the slice, its output gathered (B·H·hd)
+into ``wo`` row-parallel.  The prefill computes every kv head and keeps
+its slice; a cross-attention cache split so is gathered whole, as the
+reference's GSPMD gathers it.
 """
 from __future__ import annotations
 
@@ -319,7 +332,8 @@ def cross_attention(params: Attention, x: torch.Tensor,
 def decode_self_attention(params: Attention, x: torch.Tensor,
                           k_cache: torch.Tensor, v_cache: torch.Tensor,
                           pos: torch.Tensor, cfg: ModelConfig,
-                          seq_axes: tuple | None = None, tp: tuple = ()):
+                          seq_axes: tuple | None = None, tp: tuple = (),
+                          hd_axes: tuple = ()):
     """One-token decode step against a KV cache.
 
     x: (B, 1, D); caches (B, S_max, Hkv, hd); pos: (B,) current lengths.
@@ -339,7 +353,15 @@ def decode_self_attention(params: Attention, x: torch.Tensor,
     ``tp`` (``attention_tp``, not with ``seq_axes``): this rank's query
     heads; the caches hold its kv heads, or every kv head where "tp" is a
     multiple of them (the rank writes each and attends to its own).
+
+    ``hd_axes`` (``ctx.hd_split``, not with ``seq_axes`` or ``tp``): the
+    live "tp" axes the caches split head_dim over, (B, S_max, Hkv, hd /
+    n) here; ``params`` hold this rank's columns of wq / wk / wv and rows
+    of wo as at rest (``_hd_split_decode``).
     """
+    if hd_axes:
+        return _hd_split_decode(params, x, k_cache, v_cache, pos, cfg,
+                                hd_axes)
     B = x.shape[0]
     hd = cfg.hd
     h = coll.tp_in(rms_norm(x, params.norm, cfg.norm_eps), tp)
@@ -363,16 +385,60 @@ def decode_self_attention(params: Attention, x: torch.Tensor,
     return x + out, k_cache, v_cache
 
 
-def _masked_decode_attn(q, k, v, valid, cfg: ModelConfig) -> torch.Tensor:
+def _hd_split_decode(params: Attention, x: torch.Tensor,
+                     k_cache: torch.Tensor, v_cache: torch.Tensor,
+                     pos: torch.Tensor, cfg: ModelConfig, axes: tuple):
+    """``decode_self_attention`` on caches split on head_dim over the live
+    "tp" axes ``axes`` (n ranks; this rank's slice ``own`` of each head).
+    Each rank projects its columns of q, k and v and one all-gather makes
+    them whole; RoPE pairs dim i with i + hd / 2, so it rotates the whole
+    head_dim before the slice is taken.  The rank writes its slice of the
+    new k / v, attends with its partial scores summed over ``axes``, and the
+    outputs' slices are gathered to feed ``wo``'s rows at rest (the
+    reference's GSPMD moves the same B·H·hd elements there)."""
+    mesh = ctx.get_mesh()
+    B, n, j = x.shape[0], mesh.size(axes), mesh.index(axes)
+    width = cfg.hd // n
+    own = slice(j * width, (j + 1) * width)
+    h = rms_norm(x, params.norm, cfg.norm_eps)
+    q, k_new, v_new = coll.gather_columns(
+        [matmul(h, w.to(h.dtype), cfg, axes)
+         for w in (params.wq, params.wk, params.wv)], axes)
+    sin, cos = rope_angles(pos[:, None], cfg.hd, cfg.rope_theta)
+    q = apply_rope(q.reshape(B, 1, cfg.n_heads, cfg.hd), sin, cos)
+    k_new = apply_rope(k_new.reshape(B, 1, cfg.n_kv_heads, cfg.hd), sin,
+                       cos)
+    v_new = v_new.reshape(B, 1, cfg.n_kv_heads, cfg.hd)
+    rows = torch.arange(B, device=x.device)
+    k_cache[rows, pos] = k_new[:, 0, :, own].to(k_cache.dtype)
+    v_cache[rows, pos] = v_new[:, 0, :, own].to(v_cache.dtype)
+    valid = (torch.arange(k_cache.shape[1], device=x.device)[None, :]
+             <= pos[:, None])                                 # (B, S)
+    out = _masked_decode_attn(q[..., own], k_cache, v_cache, valid, cfg,
+                              tp=axes)
+    out = coll.all_gather_raw(out, mesh, axes, 3).reshape(B, 1, -1)
+    k_rows = out.shape[-1] // n
+    out = matmul(out[..., j * k_rows:(j + 1) * k_rows],
+                 params.wo.to(h.dtype), cfg, axes, row=True)
+    return x + out, k_cache, v_cache
+
+
+def _masked_decode_attn(q, k, v, valid, cfg: ModelConfig, tp: tuple = ()
+                        ) -> torch.Tensor:
     """q: (B, 1, H, hd); k/v: (B, S, Hkv, hd); valid: (B, S) -> (B, 1, H,
     hd).  Grouped heads without repeating the cache; q is rounded to the
     cache's dtype and both contractions accumulate in float32, as the
-    reference's ``preferred_element_type``."""
+    reference's ``preferred_element_type``.  ``tp``: the axes head_dim is
+    split over (q, k and v hold this rank's slice): the scores are partial
+    sums, all-reduced over them in float32; the scale stays the whole
+    head_dim's, and p·v gives this rank's slice of the output."""
     B, _, H, hd = q.shape
     Hkv = k.shape[2]
     qg = q.reshape(B, 1, Hkv, H // Hkv, hd).to(k.dtype).to(torch.float32)
-    s = torch.einsum("bqhgd,bkhd->bhgqk", qg,
-                     k.to(torch.float32)) * (cfg.hd ** -0.5)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.to(torch.float32))
+    if tp:
+        s = coll.all_reduce_raw(s, ctx.get_mesh(), tp)
+    s = s * (cfg.hd ** -0.5)
     s = torch.where(valid[:, None, None, None, :], s, NEG_INF)
     p = torch.softmax(s, dim=-1)                      # (B, Hkv, g, 1, S)
     out = torch.einsum("bhgqk,bkhd->bqhgd",

@@ -39,7 +39,10 @@ for the embedding and head, ``_mixer_tp`` (``attention.attention_tp``,
 cross-entropy.  MoE layers run expert-parallel
 (``moe.moe_ffn_ep``) where the "model" axis divides the experts
 (``_use_ep``), else as the function of the whole batch.  ``decode_step(seq_shard=True)`` attends to a cache
-whose sequence is split over the dp axes ("sp").
+whose sequence is split over the dp axes ("sp").  A self-attention cache
+whose kv heads do not divide over "tp" splits head_dim at rest, and
+``decode_step`` computes on that split with no gather of it
+(``_decode_hd``, ``attention.decode_self_attention(hd_axes=)``).
 """
 from __future__ import annotations
 
@@ -277,8 +280,9 @@ def _compute_layout(lc, cfg: ModelConfig, split: bool, tp: tuple):
     """One layer's cache layout in the compute, of a layer of "tp" axes
     ``tp`` (``_mixer_tp``): the batch over dp when ``split``; a KV dict's
     kv heads over ``tp`` where they divide (``_kv_heads_tp``), every other
-    dim whole; an ``SSMState`` as the SSM mixer of ``tp`` computes it,
-    ``conv_x``'s channels and ``ssm``'s heads over ``tp``, ``conv_bc``
+    dim whole (a decode on a head_dim-split cache, ``_decode_hd``, takes
+    it as it lies); an ``SSMState`` as the SSM mixer of ``tp`` computes
+    it, ``conv_x``'s channels and ``ssm``'s heads over ``tp``, ``conv_bc``
     whole."""
     mesh = ctx.get_mesh()
     dp = ctx.resolve_axis("dp") if split else None
@@ -321,6 +325,16 @@ def _mixer_tp(spec: LayerSpec, cfg: ModelConfig) -> tuple:
     if spec.kind == "ssm":
         return SSM.ssm_tp(cfg)
     return A.attention_tp(cfg)
+
+
+def _decode_hd(spec: LayerSpec, cfg: ModelConfig) -> tuple:
+    """The live "tp" axes a self-attention layer's decode splits head_dim
+    over (``ctx.hd_split``: its cache splits head_dim at rest); none for
+    SSM and cross-attention layers (a cross cache split so is gathered,
+    as the reference's GSPMD gathers it)."""
+    if spec.kind == "ssm" or spec.cross_attn:
+        return ()
+    return ctx.hd_split(cfg.n_kv_heads, cfg.hd)
 
 
 def _kv_heads_tp(cfg: ModelConfig, tp: tuple) -> tuple:
@@ -630,16 +644,19 @@ def decode_step(params: Transformer, cache: list, tokens: torch.Tensor,
             spec = layer_spec(cfg, i)
             seq_attn = (spec.kind != "ssm" and not spec.cross_attn
                         and seq is not None)
-            # the sequence-split decode computes every head
-            tp = () if seq_attn else _mixer_tp(spec, cfg)
-            mixer = _local(lp.mixer, tp)
+            # the sequence-split decode computes every head; the decode on
+            # a head_dim-split cache splits every projection over "tp"
+            hd = () if seq_attn else _decode_hd(spec, cfg)
+            tp = () if seq_attn or hd else _mixer_tp(spec, cfg)
+            mixer = _local(lp.mixer, tp or hd)
             if seq_attn:
                 lc = cache[i]
                 x, lc["k"], lc["v"] = A.decode_self_attention(
                     mixer, x, lc["k"], lc["v"], pos, cfg, seq_axes=seq)
             else:
-                lc = _cache_moved(cache[i], cfg, B, i, split, to_rest=False,
-                                  tp=tp)
+                # a head_dim-split cache is attended to as it lies at rest
+                lc = cache[i] if hd else _cache_moved(
+                    cache[i], cfg, B, i, split, to_rest=False, tp=tp)
                 if spec.kind == "ssm":
                     x, lc = SSM.ssm_decode_step(mixer, x, lc, cfg, tp=tp)
                 elif spec.cross_attn:
@@ -648,8 +665,9 @@ def decode_step(params: Transformer, cache: list, tokens: torch.Tensor,
                                              tp=tp)
                 else:
                     x, lc["k"], lc["v"] = A.decode_self_attention(
-                        mixer, x, lc["k"], lc["v"], pos, cfg, tp=tp)
-                if not spec.cross_attn:
+                        mixer, x, lc["k"], lc["v"], pos, cfg, tp=tp,
+                        hd_axes=hd)
+                if not (spec.cross_attn or hd):
                     cache[i] = _cache_moved(lc, cfg, B, i, split,
                                             to_rest=True, tp=tp)
             x, _ = _ffn_block(spec, lp, x, cfg, full_capacity=True)

@@ -14,8 +14,10 @@ are ``torch.autograd.Function``s:
   own part from a tensor they share);
 * the tensor-parallel operators over the active mesh's "tp" axes
   (Megatron-LM's *f* and *g*, ``tp_in`` / ``tp_out``), ``tp_gather`` (a
-  column-parallel result made whole for every rank) and ``sum_int32`` (the
-  LUT path's integer partial sums);
+  column-parallel result made whole for every rank), ``gather_columns``
+  (several column-parallel results made whole in one call, without
+  autograd: a decode's q, k and v) and ``sum_int32`` (the LUT path's
+  integer partial sums);
 * ``materialize``: a parameter's whole value from its slice, per layer
   (``ctx``'s docstring says how the LM uses it);
 * ``place`` (this rank's slice of a whole tensor), ``gather`` (the whole
@@ -235,6 +237,18 @@ def sum_int32(parts: Sequence[torch.Tensor], tp: tuple) -> list:
                           ctx.get_mesh(), tp)
     return [t.view(p.shape) for t, p in
             zip(flat.split([p.numel() for p in parts]), parts)]
+
+
+def gather_columns(parts: Sequence[torch.Tensor], tp: tuple) -> list:
+    """Each of ``parts`` (this rank's block of a column-parallel result on
+    the last dim; one dtype, one leading shape) whole on every rank along
+    ``tp``, in one all-gather of their concatenation (no autograd)."""
+    mesh = ctx.get_mesh()
+    widths = [p.shape[-1] for p in parts]
+    flat = all_gather_raw(torch.cat(list(parts), -1), mesh, tp, -1)
+    lead = flat.shape[:-1]
+    blocks = flat.reshape(*lead, mesh.size(tp), sum(widths)).split(widths, -1)
+    return [b.reshape(*lead, -1) for b in blocks]
 
 
 # ------------------------------ layouts -------------------------------------

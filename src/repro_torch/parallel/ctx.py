@@ -57,18 +57,28 @@ How the LM computes on a mesh (``models/``, ``launch/steps.py``):
     ``wk`` / ``wv`` are column-parallel and the cache (self or cross) is
     heads-split at rest, as the rank computes it; where "tp" is a multiple
     of ``n_kv_heads``, a rank's query heads share one kv head, whose
-    columns it takes from the gathered ``wk`` / ``wv`` (the decode and
-    prefill compute every kv head, since the cache at rest splits
-    head_dim over "tp" and is gathered as ``reshard`` does).  An SSM
-    layer's state stays split as at rest: ``conv_x``'s channels and the
-    state's heads.  The approximate multiplier (``models/quant.py``) stays
-    one rank's bit for bit at each projection: ranges are the whole
-    tensor's and a row-parallel projection's int32 sums are all-reduced
-    before the float conversion (the SSM's gate norm, summed over "tp" in
-    another order, rounds otherwise).  ``tp_divides`` says which blocks
+    columns it takes from the gathered ``wk`` / ``wv`` (the prefill
+    computes every kv head for the cache).  A self-attention cache whose
+    kv heads do not divide over "tp" splits head_dim at rest (``hd_split``
+    says where), and its decode computes on that split, as the
+    reference's ``decode_self_attention(kv_spec=...)``: whether or not the
+    query heads divide, each rank projects its columns of q, k and v
+    (``wq`` / ``wk`` / ``wv`` column-parallel), gathers the new token's q,
+    k and v whole (B·(H + 2·Hkv)·hd elements) to rotate them, writes its
+    head_dim slice of k and v, and sums its partial scores over "tp" (a
+    B·H·S float32 all-reduce); p·v runs on the slice, its output is
+    gathered (B·H·hd) and ``wo`` is row-parallel: no cache and no weight
+    is gathered.  A cross-attention cache split so is gathered whole, as
+    the reference's GSPMD gathers it.  An SSM layer's state stays split
+    as at rest: ``conv_x``'s channels and the state's heads.  The
+    approximate multiplier (``models/quant.py``) stays one rank's bit for
+    bit at each projection: ranges are the whole tensor's and a
+    row-parallel projection's int32 sums are all-reduced before the float
+    conversion (the SSM's gate norm, summed over "tp" in another order,
+    rounds otherwise).  ``tp_divides`` says which blocks
     split; a block whose dims do not divide (phi4-mini's 24 heads at tp =
     16) gathers what "tp" splits and computes whole, the same on every
-    "model" rank.
+    "model" rank, but for the decode on a head_dim-split cache.
   * **Parameters are gathered per layer**: a block gathers every dim its
     parameters' specs split over the dp axes ("fsdp"), and over "tp" too
     where it computes whole, when it runs, inside the remat region, so the
@@ -85,7 +95,8 @@ How the LM computes on a mesh (``models/``, ``launch/steps.py``):
     multiplier then takes its scale from the min and max over every rank's
     rows (``models/quant.py``), so it is the unsharded scale.  Caches are
     gathered where a spec splits what the compute keeps whole
-    (``reshard``), but for the sequence-split decode.
+    (``reshard``), but for the sequence-split decode and the decode on a
+    head_dim-split cache.
   * **Expert parallelism** (``moe.moe_ffn_ep``) and the **sequence-split
     decode** (``attention.decode_self_attention(seq_axes=...)``) run with
     explicit collectives, as the reference's ``shard_map``s do: each
@@ -423,6 +434,16 @@ def tp_divides(*dims: int) -> tuple:
     tp = tp_axes()
     n = math.prod(get_mesh().axis_size(a) for a in tp) if tp else 1
     return tp if tp and all(d % n == 0 for d in dims) else ()
+
+
+def hd_split(n_kv_heads: int, head_dim: int) -> tuple:
+    """``tp_axes()`` where an attention layer's cache splits head_dim over
+    them (the reference's ``cache_specs``: the kv heads do not divide over
+    "tp", head_dim does), so a self-attention decode computes on each
+    rank's head_dim slice; else ()."""
+    tp = tp_axes()
+    n = math.prod(get_mesh().axis_size(a) for a in tp) if tp else 1
+    return tp if tp and n_kv_heads % n and head_dim % n == 0 else ()
 
 
 def pod_count() -> int:

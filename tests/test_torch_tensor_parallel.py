@@ -162,20 +162,31 @@ def _seeded(cfg, seed=6):
 
 def _serve(params, cfg, toks):
     """(forward logits, prefill logits, DEC_STEPS decode steps' logits,
-    the first layer's cache at rest)."""
+    the first layer's cache at rest, the k cache the first layer's decode
+    computes on)."""
+    from repro_torch.models import attention as A
     from repro_torch.models import model as M
-    with torch.no_grad():
-        fw, _ = M.forward_train(params, toks, cfg)
-        pre, cache = M.prefill(params, toks, cfg,
-                               max_len=toks.shape[1] + DEC_STEPS)
-        steps = []
-        for s in range(DEC_STEPS):
-            lg, cache = M.decode_step(
-                params, cache, toks[:, s:s + 1],
-                torch.full((toks.shape[0],), toks.shape[1] + s), cfg)
-            steps.append(lg)
+    real, seen = A.decode_self_attention, []
+
+    def rec(params_, x, k, *a, **kw):
+        seen.append(tuple(k.shape))
+        return real(params_, x, k, *a, **kw)
+    A.decode_self_attention = rec
+    try:
+        with torch.no_grad():
+            fw, _ = M.forward_train(params, toks, cfg)
+            pre, cache = M.prefill(params, toks, cfg,
+                                   max_len=toks.shape[1] + DEC_STEPS)
+            steps = []
+            for s in range(DEC_STEPS):
+                lg, cache = M.decode_step(
+                    params, cache, toks[:, s:s + 1],
+                    torch.full((toks.shape[0],), toks.shape[1] + s), cfg)
+                steps.append(lg)
+    finally:
+        A.decode_self_attention = real
     return ([t.numpy() for t in (fw, pre, torch.stack(steps))],
-            tuple(cache[0]["k"].shape))
+            tuple(cache[0]["k"].shape), seen[0])
 
 
 def _grads_and_train(ref, cfg):
@@ -461,17 +472,19 @@ def test_lut_logits_are_one_ranks_bit_for_bit(ranks):
 
 def test_decode_on_split_caches(ranks):
     """The decode on a heads-split cache ((1, 2): one of the 2 kv heads a
-    rank, as the rank computes them) and on an hd-split one ((1, 4): each
-    rank's query heads share a kv head, the cache gathered whole to
-    attend): the caches at rest have the reference's shard shapes, the
-    logits are unsharded within the float32 tolerance."""
+    rank, as the rank computes them) and on an hd-split one ((1, 4): the
+    2 kv heads do not divide over 4, so a rank holds every kv head's
+    head_dim slice and attends on it, its partial scores summed over
+    "model"): the caches at rest have the reference's shard shapes, and
+    the decode computes on the same layout; the logits are unsharded
+    within the float32 tolerance."""
     one, two, four = ranks
     want = one[None]["fw"][0]
     for outs, shape, local in ((two, (1, 2), (4, 15, 1, 8)),
                                (four, (1, 4), (4, 15, 2, 2))):
         for out in outs:
-            logits, cache = out[shape]["fw"]
-            assert cache == local
+            logits, cache, compute = out[shape]["fw"]
+            assert cache == compute == local
             for a, b in zip(logits[1:], want[1:]):
                 _close(a, b)
 

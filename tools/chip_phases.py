@@ -6,6 +6,7 @@
   python3 tools/chip_phases.py multi
   python3 tools/chip_phases.py tp
   python3 tools/chip_phases.py mixers
+  python3 tools/chip_phases.py hd
   python3 tools/chip_phases.py ep_train --seqs 256,4096
   python3 tools/chip_phases.py tooling
   python3 tools/chip_phases.py figures [--width 6 --gens 300]
@@ -24,7 +25,9 @@ than the logits limit, which was set on the elite's table); ``ssm``
 multi-device LM); ``tp`` (22 (e), tensor-parallel serving, then 23 (b'),
 its fake world's dry run against rank 0's counts); ``mixers`` (22 (f) and
 (g), the SSM mixer and cross-attention tensor-parallel: mamba2-1.3b and
-llama3.2-vision-11b served, mamba2 trained); ``tooling`` (23, the
+llama3.2-vision-11b served, mamba2 trained); ``hd`` (22 (h), the decode
+on a head_dim-split cache: llama3.2-1b on (data 1, model 16), 16 gloo
+ranks on the card); ``tooling`` (23, the
 dry run and the roofline against the card); ``figures`` (24, the paper's figure
 pipeline: ``--width`` / ``--gens`` set (b)'s width and generations);
 ``figures_pass`` (24 (b) alone into ``--out-dir``, kept: the figure
@@ -102,6 +105,8 @@ PHASES = {"flash": lambda device, tmp, lut, args:
           "tp": tp,
           "mixers": lambda device, tmp, lut, args:
           CS.phase_multi_mixers(device, lut),
+          "hd": lambda device, tmp, lut, args:
+          CS.phase_multi_hd(device, lut),
           "figures": figures,
           "figures_pass": figures_pass,
           "tooling": lambda device, tmp, lut, args:
