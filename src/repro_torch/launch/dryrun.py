@@ -29,10 +29,12 @@ One dispatch mode (``Counter``) counts what the step does:
   same FLOPs, bytes and collectives;
 * every ``c10d`` collective, by output bytes, under the reference's op
   names (all-gather, all-reduce, reduce-scatter, all-to-all; broadcast
-  too), and by the span of its group (``roofline.link``: inside one
-  8-rank node or across nodes).  The reference's ``parse_collective_bytes``
-  has no counterpart: there is no HLO; every collective the port issues,
-  the CGP side's included, reaches the dispatcher as a ``c10d`` op;
+  too), by the span of its group (``roofline.link``: inside one 8-rank
+  node or across nodes) and by its group's size (``per_group``: a mesh
+  line's, or a head group's ``ctx.Mesh.subgroup``).  The reference's
+  ``parse_collective_bytes`` has no counterpart: there is no HLO;
+  every collective the port issues, the CGP side's included, reaches
+  the dispatcher as a ``c10d`` op;
 * the hand-written kernels' calls, which take ``kernels/ops.py``'s abstract
   route on fake tensors (their work is priced by ``roofline``'s work
   models, not counted as aten ops).
@@ -150,6 +152,7 @@ class Counter(TorchDispatchMode):
         self.per_op: dict[str, int] = defaultdict(int)
         self.calls: dict[str, int] = defaultdict(int)
         self.per_link: dict[str, int] = defaultdict(int)
+        self.per_group: dict[str, int] = defaultdict(int)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -160,7 +163,9 @@ class Counter(TorchDispatchMode):
                 n = sum(_bytes(t) for t in _tensors(args[0]))
                 self.per_op[name] += n
                 self.calls[name] += 1
-                self.per_link[link(_group_ranks(args))] += n
+                ranks = _group_ranks(args)
+                self.per_link[link(ranks)] += n
+                self.per_group[str(len(ranks))] += n
             return out
         if func.namespace == "prim":
             return func(*args, **kwargs)
@@ -192,7 +197,8 @@ class Counter(TorchDispatchMode):
             "collectives": {"total_bytes": float(sum(self.per_op.values())),
                             "per_op": dict(self.per_op),
                             "calls": dict(self.calls),
-                            "per_link": dict(self.per_link)}}
+                            "per_link": dict(self.per_link),
+                            "per_group": dict(self.per_group)}}
 
 
 def kernel_calls(traced: list) -> list:

@@ -46,7 +46,9 @@ B/s each way.  Across nodes: one 400 Gb/s NIC a card, the DGX H100 layout
 cards), 50e9 B/s.  A group whose ranks all lie in one block of 8
 consecutive ranks (a DGX node) is priced at NVLink, any other at the NIC.
 No axis of the production (16, 16) mesh stays inside one node: a "model"
-line is 16 consecutive ranks (two nodes) and a "data" line strides by 16.
+line is 16 consecutive ranks (two nodes) and a "data" line strides by 16;
+a head group's consecutive ranks (``ctx.Mesh.subgroup``: phi4-mini's
+pairs) do, and are priced at NVLink.
 That mesh was a TPU v5e pod's 2-D torus, where every axis rides ICI; on
 H100 nodes every production collective crosses the NICs.
 

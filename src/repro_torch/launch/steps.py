@@ -2,7 +2,8 @@
 ``launch/train.py``, the examples and ``chip_smoke.py``.
 
 The train step differentiates ``lm_loss`` with autograd (the reference has
-no hand-written backward either) on the ``"blocked"`` or ``"naive"``
+no hand-written backward either; ``torch.autograd.grad``, whose gradients
+are never copied) on the ``"blocked"`` or ``"naive"``
 attention path, and updates the parameters with ``optim.apply_gradients``
 on the reference's tree (``convert.reference_tree``: layers stacked), so
 its optimizer state is the reference's leaf for leaf.  The parameters stay
@@ -54,6 +55,21 @@ def _take_grads(params: M.Transformer, cfg: ModelConfig) -> Tree:
     return grads
 
 
+def _backward(loss: torch.Tensor, params: M.Transformer) -> None:
+    """The gradients of ``loss`` into the trainable parameters' ``.grad``
+    (left None for those it does not reach), as ``loss.backward()`` but
+    through ``torch.autograd.grad``: ``backward``'s gradient accumulator
+    keeps an incoming gradient's buffer as ``.grad`` only when nothing
+    else refers to it at that moment, else copies it, and what else
+    refers to it (a dispatch mode's objects awaiting the garbage
+    collector) depends on when a collection last ran; so two runs of the
+    same step counted other copies (``launch/dryrun.py``'s bytes).  The
+    gradients returned here are the same tensors, never copied."""
+    ps = [p for p in params.parameters() if p.requires_grad]
+    for p, g in zip(ps, torch.autograd.grad(loss, ps, allow_unused=True)):
+        p.grad = g
+
+
 def loss_and_grads(params: M.Transformer, cfg: ModelConfig,
                    tokens: torch.Tensor, targets: torch.Tensor,
                    microbatches: int = 1,
@@ -69,7 +85,7 @@ def loss_and_grads(params: M.Transformer, cfg: ModelConfig,
     trainable(params)
     if microbatches == 1:
         loss = M.lm_loss(params, tokens, targets, cfg, image_embeds)
-        loss.backward()
+        _backward(loss, params)
         return loss.detach(), _take_grads(params, cfg)
     mb = tokens.shape[0] // microbatches
     loss = torch.zeros((), dtype=torch.float32, device=tokens.device)
@@ -78,7 +94,7 @@ def loss_and_grads(params: M.Transformer, cfg: ModelConfig,
         rows = slice(k * mb, (k + 1) * mb)
         part = M.lm_loss(params, tokens[rows], targets[rows], cfg,
                          image_embeds)
-        part.backward()
+        _backward(part, params)
         g = _take_grads(params, cfg)
         if grads is None:
             grads = T.map(lambda x: torch.zeros(x.shape, dtype=torch.float32,

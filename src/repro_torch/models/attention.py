@@ -28,8 +28,15 @@ query heads share kv head ``h // (n_heads / n_kv_heads)``, which it
 projects from the gathered ``wk`` / ``wv`` (every kv head where a cache
 takes them).  Cross-attention splits the same way (``cross_attention(tp=
 )``), its K/V cache as the self-attention cache.  Query heads that do not
-divide (phi4-mini's 24 at tp = 16) keep the whole block on every rank, as
-the sequence-split decode does.
+divide (phi4-mini's 24 at tp = 16) split self-attention as head groups ×
+head_dim slices (``attention_heads``, ``self_attention(heads=)``): each
+group's ranks hold its query and kv heads on their slices, their partial
+scores all-reduced over the group per query block of
+``blocked_attention`` (or at once under ``"naive"``); under
+``attn_impl="pallas"`` such a block computes whole on every rank, since
+the flash kernel finishes each head's softmax inside one launch.  Cross-
+attention of such heads computes whole, as the sequence-split decode
+does.
 
 Where the kv heads do not divide over "tp" and head_dim does, the cache
 splits head_dim at rest (``parallel.ctx.hd_split``), and the decode
@@ -111,7 +118,8 @@ def _repeat_kv(k: torch.Tensor, v: torch.Tensor, heads: int):
 
 def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       causal: bool, block_q: int, block_kv: int,
-                      skip_masked: bool = True) -> torch.Tensor:
+                      skip_masked: bool = True, scale: float | None = None,
+                      reduce=None) -> torch.Tensor:
     """Online-softmax attention in float32, O(S·block) memory.
 
     q: (B, Sq, H, D); k/v: (B, Skv, Hkv, D), GQA by head repetition; q and
@@ -122,11 +130,16 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the same bit for bit as those of every block pair (``skip_masked=
     False``, the reference's loop), with less work (about half of it at
     long sequences) and none of those blocks' scores kept for a backward
-    pass."""
+    pass.
+
+    ``scale`` (default D^-1/2) multiplies q.  ``reduce``: a function of a
+    query block's scores against every key block it reads, (B, H, bq,
+    keys) float32, applied before the online softmax (the sum of partial
+    scores over head_dim slices: ``self_attention(heads=)``)."""
     B, Sq, H, D = q.shape
     Skv = k.shape[1]
     k, v = _repeat_kv(k, v, H)
-    scale = D ** -0.5
+    scale = D ** -0.5 if scale is None else scale
     bq, bkv = min(block_q, Sq), min(block_kv, Skv)
     pq, pkv = (-Sq) % bq, (-Skv) % bkv
     if pq:
@@ -149,10 +162,18 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         acc = torch.zeros((B, H, bq, D), dtype=torch.float32, device=dev)
         m = torch.full((B, H, bq), NEG_INF, dtype=torch.float32, device=dev)
         l = torch.zeros((B, H, bq), dtype=torch.float32, device=dev)
+        if reduce is not None:
+            last = (min(nkv, ((qi + 1) * bq - 1) // bkv + 1)
+                    if skip_masked and causal else nkv)
+            scores = reduce(torch.einsum(
+                "bqhd,bkhd->bhqk", q_i,
+                kb[:, :last].reshape(B, last * bkv, H, D)))
         for kj in range(nkv):
             if skip_masked and causal and kj * bkv > (qi + 1) * bq - 1:
                 break
-            s = torch.einsum("bqhd,bkhd->bhqk", q_i, kb[:, kj])
+            s = (torch.einsum("bqhd,bkhd->bhqk", q_i, kb[:, kj])
+                 if reduce is None else
+                 scores[..., kj * bkv:(kj + 1) * bkv])
             mask = kv_valid[kj][None, None, None, :]
             if causal:
                 mask = mask & (q_pos[qi][None, None, :, None]
@@ -171,12 +192,19 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out[:, :Sq].to(q.dtype)
 
 
-def naive_attention(q, k, v, causal: bool) -> torch.Tensor:
+def naive_attention(q, k, v, causal: bool, scale: float | None = None,
+                    reduce=None) -> torch.Tensor:
+    """``blocked_attention``'s function in one pass; ``scale`` and
+    ``reduce`` as there (``reduce`` takes the whole (B, H, Sq, Skv)
+    scores)."""
     B, Sq, H, D = q.shape
     Skv = k.shape[1]
     k, v = _repeat_kv(k, v, H)
     s = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32),
-                     k.to(torch.float32)) * (D ** -0.5)
+                     k.to(torch.float32))
+    if reduce is not None:
+        s = reduce(s)
+    s = s * (D ** -0.5 if scale is None else scale)
     if causal:
         mask = (torch.arange(Sq, device=q.device)[:, None]
                 >= torch.arange(Skv, device=q.device)[None, :])
@@ -186,10 +214,12 @@ def naive_attention(q, k, v, causal: bool) -> torch.Tensor:
                         v.to(torch.float32)).to(q.dtype)
 
 
-def run_attention(q, k, v, cfg: ModelConfig, causal: bool = True
-                  ) -> torch.Tensor:
+def run_attention(q, k, v, cfg: ModelConfig, causal: bool = True,
+                  scale: float | None = None, reduce=None) -> torch.Tensor:
+    """``cfg.attn_impl``'s attention; ``scale`` and ``reduce`` as
+    ``blocked_attention``'s (not for ``"pallas"``)."""
     if cfg.attn_impl == "naive":
-        return naive_attention(q, k, v, causal)
+        return naive_attention(q, k, v, causal, scale, reduce)
     if cfg.attn_impl == "pallas":
         if torch.is_grad_enabled() and any(
                 t.requires_grad for t in (q, k, v)):
@@ -204,7 +234,7 @@ def run_attention(q, k, v, cfg: ModelConfig, causal: bool = True
     if cfg.attn_impl != "blocked":
         raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}")
     return blocked_attention(q, k, v, causal, cfg.attn_block_q,
-                             cfg.attn_block_kv)
+                             cfg.attn_block_kv, scale=scale, reduce=reduce)
 
 
 # ------------------------------ layer apply ---------------------------------
@@ -218,6 +248,18 @@ def attention_tp(cfg: ModelConfig) -> tuple:
     if tp and (cfg.n_kv_heads % n == 0 or n % cfg.n_kv_heads == 0):
         return tp
     return ()
+
+
+def attention_heads(cfg: ModelConfig) -> ctx.HeadSplit | None:
+    """Self-attention as head groups × head_dim slices over "tp"
+    (``ctx.head_split``): where the query heads do not divide over it
+    (``attention_tp`` is empty) and the split fits; None otherwise, and
+    under ``attn_impl="pallas"``, whose flash kernel finishes each head's
+    softmax inside one launch and so cannot take a head_dim slice (that
+    block computes whole)."""
+    if cfg.attn_impl == "pallas" or attention_tp(cfg):
+        return None
+    return ctx.head_split(cfg.n_heads, cfg.n_kv_heads, cfg.hd)
 
 
 def _kv_slice(cfg: ModelConfig, tp: tuple) -> slice:
@@ -273,12 +315,16 @@ def _qkv(params: Attention, h: torch.Tensor, cfg: ModelConfig, tp: tuple,
 
 def self_attention(params: Attention, x: torch.Tensor, cfg: ModelConfig,
                    positions: torch.Tensor | None = None, tp: tuple = (),
-                   all_kv: bool = False):
+                   all_kv: bool = False, heads: ctx.HeadSplit | None = None):
     """Pre-norm residual GQA self-attention over a full sequence:
     (x + out, (k, v)) with k/v (B, S, Hkv, hd) after RoPE.  ``tp``
     (``attention_tp``): ``params`` hold this rank's columns of wq / wk /
     wv and rows of wo, and k / v its kv heads (``_qkv``; every one with
-    ``all_kv``)."""
+    ``all_kv``).  ``heads`` (``attention_heads``): ``params`` as at rest,
+    this rank computes its group's heads on its head_dim slice, and k / v
+    are (B, S, the group's kv heads, the slice) (``_grouped``)."""
+    if heads is not None:
+        return _grouped(params, x, cfg, positions, heads)
     B, S, _ = x.shape
     hd = cfg.hd
     h = coll.tp_in(rms_norm(x, params.norm, cfg.norm_eps), tp)
@@ -291,6 +337,41 @@ def self_attention(params: Attention, x: torch.Tensor, cfg: ModelConfig,
     out = run_attention(q, k[:, :, own], v[:, :, own], cfg, causal=True)
     out = matmul(out.reshape(B, S, q.shape[2] * hd),
                  params.wo.to(h.dtype), cfg, tp, row=True)
+    return x + out, (k, v)
+
+
+def _grouped(params: Attention, x: torch.Tensor, cfg: ModelConfig,
+             positions: torch.Tensor | None, heads: ctx.HeadSplit):
+    """``self_attention`` as the reference's GSPMD splits heads that do not
+    divide over "tp" (n ranks, ``heads``: g groups × s head_dim slices).
+    ``wq`` / ``wk`` / ``wv`` are column-parallel as they lie (a group's
+    heads' columns lie on its s ranks); one all-gather over the group
+    lays them out as the group's heads × this rank's slice, RoPE rotates
+    the slice (its rotate-half pairs are its own), the scores are this
+    rank's partial sums over its slice, all-reduced in float32 over the
+    group per query block; softmax runs on the whole scores on each of
+    the group's ranks, p·v on the slice; the output is gathered over the
+    group to whole head_dim, and ``wo`` is row-parallel, *g* after it.
+    The scale is the whole head_dim's."""
+    B, S, _ = x.shape
+    hd, axes = cfg.hd, heads.axes
+    h = coll.tp_in(rms_norm(x, params.norm, cfg.norm_eps), axes)
+    q, k, v = coll.group_heads([matmul(h, w.to(h.dtype), cfg, axes)
+                                for w in (params.wq, params.wk, params.wv)],
+                               heads, hd)
+    if positions is None:
+        positions = torch.arange(S, device=x.device)[None, :]
+    sin, cos = rope_angles(positions, hd, cfg.rope_theta)
+    w = hd // (2 * heads.slices)
+    freqs = slice(heads.slice * w, (heads.slice + 1) * w)
+    q = apply_rope(q, sin[..., freqs], cos[..., freqs])
+    k = apply_rope(k, sin[..., freqs], cos[..., freqs])
+    out = run_attention(q, k, v, cfg, causal=True, scale=hd ** -0.5,
+                        reduce=lambda s: coll.group_sum(s, heads))
+    out = coll.group_output(out, heads).reshape(B, S, -1)
+    rows = params.wo.shape[0]
+    out = matmul(out[..., heads.slice * rows:(heads.slice + 1) * rows],
+                 params.wo.to(h.dtype), cfg, axes, row=True)
     return x + out, (k, v)
 
 

@@ -125,6 +125,40 @@ def embed_specs(cfg: ModelConfig) -> dict:
     return {"tokens": ("tp", None) if v_tp else (v_fs, "tp")}
 
 
+@contextlib.contextmanager
+def _deterministic():
+    """PyTorch's deterministic algorithms within the block."""
+    on = torch.are_deterministic_algorithms_enabled()
+    warn = torch.is_deterministic_algorithms_warn_only_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(on, warn_only=warn)
+
+
+class _Take(torch.autograd.Function):
+    """``table[ids]``, the rows of a token table.  Its backward is the
+    ``index_put`` autograd gives ``table[ids]``, run under deterministic
+    algorithms: the multithreaded CPU kernel otherwise adds a repeated
+    id's gradient rows in whatever order its threads reach them, so two
+    runs of the same training step parted in the last bits (and a card
+    against CPU comparison by more than its noise)."""
+
+    @staticmethod
+    def forward(ctx_, table, ids):
+        ctx_.save_for_backward(ids)
+        ctx_.shape = table.shape
+        return table[ids]
+
+    @staticmethod
+    def backward(ctx_, g):
+        (ids,) = ctx_.saved_tensors
+        with _deterministic():
+            return torch.index_put(g.new_zeros(ctx_.shape), (ids,), g,
+                                   accumulate=True), None
+
+
 def init_embed(gen: torch.Generator, cfg: ModelConfig, device) -> Embed:
     e = Embed(cfg, device)
     dense_init(gen, e.tokens, scale=0.02)
@@ -132,7 +166,7 @@ def init_embed(gen: torch.Generator, cfg: ModelConfig, device) -> Embed:
 
 
 def embed_tokens(params: Embed, tokens: torch.Tensor, cfg: ModelConfig,
-                 tp: tuple = ()) -> torch.Tensor:
+                 tp: tuple = (), cols: tuple = ()) -> torch.Tensor:
     """tokens (B, S) -> (B, S, d_model) in the activation dtype.  Audio
     tokens (B, S, C): the C codebooks' embeddings summed in order c = 0 ..
     C-1 in the table's dtype, then cast, as the reference sums them.
@@ -140,8 +174,12 @@ def embed_tokens(params: Embed, tokens: torch.Tensor, cfg: ModelConfig,
     ``tp``: the live "tp" axes the vocabulary is split over (the table
     holds this rank's rows): each rank looks up the ids in its rows, zero
     elsewhere, and the lookups are summed over ``tp`` (exact: one term of
-    each sum is not zero), each codebook's apart."""
-    tok = materialize(params.tokens, ("model",) if tp else ())
+    each sum is not zero), each codebook's apart.  ``cols`` (not audio):
+    the live "tp" axes the table's d_model columns are split over: each
+    rank looks up its columns and they are gathered over ``cols`` (the
+    backward keeps this rank's block of a gradient every rank holds
+    whole)."""
+    tok = materialize(params.tokens, ("model",) if tp or cols else ())
     ids = tokens
     if tp:
         rows = tok.shape[-2]
@@ -149,7 +187,8 @@ def embed_tokens(params: Embed, tokens: torch.Tensor, cfg: ModelConfig,
         own = ((ids >= 0) & (ids < rows))[..., None]
         ids = ids.clamp(0, rows - 1)
     if cfg.frontend == "audio":
-        parts = [tok[c][ids[..., c]] for c in range(cfg.n_codebooks)]
+        parts = [_Take.apply(tok[c], ids[..., c])
+                 for c in range(cfg.n_codebooks)]
         if tp:
             parts = coll.tp_out(torch.stack([
                 torch.where(own[..., c, :], e, 0) for c, e in
@@ -158,9 +197,11 @@ def embed_tokens(params: Embed, tokens: torch.Tensor, cfg: ModelConfig,
         for c in range(1, cfg.n_codebooks):
             out = out + parts[c]
         return out.to(cfg.adtype())
-    out = tok[ids]
+    out = _Take.apply(tok, ids)
     if tp:
         out = coll.tp_out(torch.where(own, out, 0), tp)
+    if cols:
+        out = coll.tp_gather(out, cols, -1)
     return out.to(cfg.adtype())
 
 

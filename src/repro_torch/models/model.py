@@ -36,7 +36,12 @@ mixer, the dense MLP, the embedding and the head compute this rank's
 heads, columns and vocabulary (``parallel.ctx``'s docstring): ``_vocab_tp``
 for the embedding and head, ``_mixer_tp`` (``attention.attention_tp``,
 ``ssm.ssm_tp``), ``layers.mlp_tp``; the loss is then a vocab-parallel
-cross-entropy.  MoE layers run expert-parallel
+cross-entropy.  Self-attention whose query heads do not divide runs as
+head groups × head_dim slices (``_heads``; a prefill moves its caches to
+their layout at rest in one all-to-all, ``_grouped_to_rest``), and a
+vocabulary that does not divide leaves the token table's d_model split
+(``_embed_cols``: the embedding gathers the rank's columns, the tied head
+all-reduces its partial logits).  MoE layers run expert-parallel
 (``moe.moe_ffn_ep``) where the "model" axis divides the experts
 (``_use_ep``), else as the function of the whole batch.  ``decode_step(seq_shard=True)`` attends to a cache
 whose sequence is split over the dp axes ("sp").  A self-attention cache
@@ -244,13 +249,29 @@ def _vocab_tp(cfg: ModelConfig) -> tuple:
     return ctx.tp_divides(cfg.vocab)
 
 
+def _embed_cols(cfg: ModelConfig) -> tuple:
+    """The live "tp" axes a token table's d_model columns split over in
+    the compute: where the vocabulary does not divide over them, its spec
+    at rest splits d_model there (``embed_specs``, mamba2's 50280 at tp =
+    16), and the embedding and the tied head compute on the rank's
+    columns; none for the audio front end (it computes whole)."""
+    if cfg.frontend == "audio" or _vocab_tp(cfg):
+        return ()
+    return ctx.tp_axes()
+
+
+def _embed(table, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    return embed_tokens(table, tokens, cfg, _vocab_tp(cfg), _embed_cols(cfg))
+
+
 def _entry(params, cfg: ModelConfig):
     """The parameters an entry point reads whole (embedding, final norm,
-    head), gathered once, the vocabulary's "tp" split kept where it
-    computes vocab-parallel; the layers are gathered as they run."""
+    head), gathered once, the "tp" split kept where they compute on the
+    rank's vocabulary or d_model columns; the layers are gathered as they
+    run."""
     if ctx.get_mesh() is None:
         return params
-    keep = ("model",) if _vocab_tp(cfg) else ()
+    keep = ("model",) if _vocab_tp(cfg) or _embed_cols(cfg) else ()
     ns = types.SimpleNamespace(embed=coll.whole(params.embed, keep),
                                layers=params.layers,
                                final_norm=coll.materialize(params.final_norm))
@@ -309,6 +330,22 @@ def _cache_moved(lc, cfg: ModelConfig, batch: int, i: int, split: bool,
     return {k: coll.reshard(lc[k], src[k], dst[k]) for k in lc}
 
 
+def _grouped_to_rest(t: torch.Tensor, cfg: ModelConfig, batch: int, i: int,
+                     split: bool, heads: ctx.HeadSplit, pad: int):
+    """A prefill's k or v of a layer of head groups (``_heads``: (B, S, the
+    group's kv heads, this rank's head_dim slice)) padded by ``pad``
+    positions and laid out at rest: one all-to-all gives head_dim split
+    over "tp" in blocks, every kv head, as the reference's compiled prefill
+    writes its cache; then to the layer's ``cache_specs`` layout (the
+    same, but where the batch is smaller than dp)."""
+    if pad > 0:
+        t = torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad))
+    t = coll.groups_to_rest(t, heads, cfg.n_kv_heads)
+    dp = ctx.resolve_axis("dp") if split else None
+    src = ctx.Sharding(ctx.get_mesh(), (dp, None, None, heads.axes))
+    return coll.reshard(t, src, layer_cache_shardings(cfg, batch, i)["k"])
+
+
 @contextlib.contextmanager
 def _batch(batch: int):
     split = ctx.get_mesh() is not None and _dp_split(batch)
@@ -352,8 +389,21 @@ def _local(module, tp: tuple):
     return coll.whole(module, keep=("model",) if tp else ())
 
 
+def _heads(spec: LayerSpec, cfg: ModelConfig) -> ctx.HeadSplit | None:
+    """A self-attention layer's head groups × head_dim slices over "tp"
+    (``attention.attention_heads``: its query heads do not divide); None
+    for every other layer."""
+    if spec.kind == "ssm" or spec.cross_attn:
+        return None
+    return A.attention_heads(cfg)
+
+
 def _mixer_block(spec: LayerSpec, lp: Layer, x: torch.Tensor,
                  cfg: ModelConfig, image_embeds=None) -> torch.Tensor:
+    heads = _heads(spec, cfg)
+    if heads is not None:
+        return A.self_attention(_local(lp.mixer, heads.axes), x, cfg,
+                                heads=heads)[0]
     tp = _mixer_tp(spec, cfg)
     mixer = _local(lp.mixer, tp)
     if spec.kind == "ssm":
@@ -433,7 +483,16 @@ def logits_from_hidden(params: Transformer, x: torch.Tensor,
     ``lm_head``; audio: (B, S, C, vocab) from the (C, D, vocab) head (a
     plain product under ``approx_matmul`` too, as the reference's
     einsum).  Vocab-parallel where ``_vocab_tp``: this rank's vocabulary
-    columns (x behind *f*), gathered whole unless not ``gather``."""
+    columns (x behind *f*), gathered whole unless not ``gather``.  A tied
+    head on d_model columns (``_embed_cols``) contracts this rank's
+    columns of x (behind *f*) with its columns of the table, and the
+    partial logits are summed over "tp" (*g*): whole on every rank."""
+    cols = _embed_cols(cfg)
+    if cols and cfg.tie_embeddings:
+        w = coll.materialize(params.embed.tokens, ("model",))
+        j, d = ctx.get_mesh().index(cols), w.shape[-1]
+        x = coll.tp_in(x, cols)[..., j * d:(j + 1) * d]
+        return coll.tp_out(x @ w.to(x.dtype).T, cols)
     tp = _vocab_tp(cfg)
     keep = ("model",) if tp else ()
     x = coll.tp_in(x, tp)
@@ -456,8 +515,8 @@ def forward_train(params: Transformer, tokens: torch.Tensor,
     row's aux (ROADMAP, facts about the reference)."""
     with _batch(tokens.shape[0]) as split:
         p = _entry(params, cfg)
-        x, aux = backbone(p, embed_tokens(p.embed, _rows(tokens, split),
-                                          cfg, _vocab_tp(cfg)), cfg,
+        x, aux = backbone(p, _embed(p.embed, _rows(tokens, split), cfg),
+                          cfg,
                           _rows(image_embeds, split))
         logits = _all_rows(logits_from_hidden(p, x, cfg), split)
         if split and isinstance(aux, torch.Tensor):
@@ -505,8 +564,7 @@ def lm_loss(params: Transformer, tokens: torch.Tensor,
     with _batch(tokens.shape[0]) as split:
         p = _entry(params, cfg)
         tok, tgt = _rows(tokens, split), _rows(targets, split)
-        x, aux = backbone(p, embed_tokens(p.embed, tok, cfg,
-                                          _vocab_tp(cfg)), cfg,
+        x, aux = backbone(p, _embed(p.embed, tok, cfg), cfg,
                           _rows(image_embeds, split))
         if not split:
             if cfg.loss_vocab_chunk and cfg.frontend != "audio":
@@ -585,11 +643,20 @@ def prefill(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig,
     pad = (max_len or S) - S
     with _batch(B) as split:
         p = _entry(params, cfg)
-        x = embed_tokens(p.embed, _rows(tokens, split), cfg, _vocab_tp(cfg))
+        x = _embed(p.embed, _rows(tokens, split), cfg)
         img = _rows(image_embeds, split)
         cache = []
         for i, lp in enumerate(params.layers):
             spec = layer_spec(cfg, i)
+            heads = _heads(spec, cfg)
+            if heads is not None:
+                x, (k, v) = A.self_attention(_local(lp.mixer, heads.axes), x,
+                                             cfg, heads=heads)
+                cache.append({n: _grouped_to_rest(t, cfg, B, i, split, heads,
+                                                  pad)
+                              for n, t in (("k", k), ("v", v))})
+                x, _ = _ffn_block(spec, lp, x, cfg)
+                continue
             tp = _mixer_tp(spec, cfg)
             mixer = _local(lp.mixer, tp)
             if spec.kind == "ssm":
@@ -638,7 +705,7 @@ def decode_step(params: Transformer, cache: list, tokens: torch.Tensor,
         seq = coll.live(mesh, ctx.axes_of("sp"))
     with _batch(B) as split:
         p = _entry(params, cfg)
-        x = embed_tokens(p.embed, _rows(tokens, split), cfg, _vocab_tp(cfg))
+        x = _embed(p.embed, _rows(tokens, split), cfg)
         pos = _rows(pos, split)
         for i, lp in enumerate(params.layers):
             spec = layer_spec(cfg, i)

@@ -18,6 +18,13 @@ are ``torch.autograd.Function``s:
   (several column-parallel results made whole in one call, without
   autograd: a decode's q, k and v) and ``sum_int32`` (the LUT path's
   integer partial sums);
+* self-attention's head groups × head_dim slices (``ctx.head_split``):
+  ``group_heads`` (the q / k / v columns laid out as the group's heads ×
+  this rank's slice, one all-gather over the group, a reduce-scatter
+  back), ``group_sum`` (the scores' partial sums, an all-reduce over the
+  group both ways), ``group_output`` (the output gathered to whole
+  head_dim) and ``groups_to_rest`` (a prefill's cache to its layout at
+  rest, one all-to-all over "tp");
 * ``materialize``: a parameter's whole value from its slice, per layer
   (``ctx``'s docstring says how the LM uses it);
 * ``place`` (this rank's slice of a whole tensor), ``gather`` (the whole
@@ -95,11 +102,14 @@ def all_gather_raw(x: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
     """The blocks of ``x`` from every rank along ``axes``, concatenated on
     ``dim`` in row-major order of the axes (no autograd)."""
     axes = _axes(mesh, axes)
-    n = mesh.size(axes)
+    return _gather(x, mesh.group(axes), mesh.size(axes), dim)
+
+
+def _gather(x: torch.Tensor, group, n: int, dim: int) -> torch.Tensor:
     x = x.movedim(dim, 0).contiguous()
     out = torch.empty((n * x.shape[0],) + tuple(x.shape[1:]), dtype=x.dtype,
                       device=x.device)
-    _call(dist.all_gather, x, list(out.chunk(n)), x, group=mesh.group(axes))
+    _call(dist.all_gather, x, list(out.chunk(n)), x, group=group)
     return out.movedim(0, dim)
 
 
@@ -107,12 +117,15 @@ def all_reduce_raw(x: torch.Tensor, mesh, axes, op: str = "sum"
                    ) -> torch.Tensor:
     """The element-wise SUM, MAX or MIN of ``x`` over the ranks along
     ``axes``, as a new tensor (no autograd)."""
-    axes = _axes(mesh, axes)
+    return _reduce(x, mesh.group(_axes(mesh, axes)), op)
+
+
+def _reduce(x: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
     wide = (op == "sum" and x.is_floating_point()
             and x.dtype != torch.float64 and x.dtype != torch.float32)
     out = x.to(torch.float32) if wide else x.clone()
     out = out.contiguous()
-    _call(dist.all_reduce, out, out, op=OPS[op], group=mesh.group(axes))
+    _call(dist.all_reduce, out, out, op=OPS[op], group=group)
     return out.to(x.dtype) if wide else out
 
 
@@ -121,14 +134,27 @@ def reduce_scatter_raw(x: torch.Tensor, mesh, axes, dim: int
     """This rank's block on ``dim`` of the SUM of ``x`` over the ranks
     along ``axes`` (no autograd)."""
     axes = _axes(mesh, axes)
-    n = mesh.size(axes)
+    return _scatter(x, mesh.group(axes), mesh.size(axes), dim)
+
+
+def _scatter(x: torch.Tensor, group, n: int, dim: int) -> torch.Tensor:
     wide = x.is_floating_point() and x.dtype not in (torch.float32,
                                                      torch.float64)
     parts = [p.contiguous() for p in
              (x.to(torch.float32) if wide else x).chunk(n, dim)]
     out = torch.empty_like(parts[0])
-    _call(dist.reduce_scatter, out, out, parts, group=mesh.group(axes))
+    _call(dist.reduce_scatter, out, out, parts, group=group)
     return out.to(x.dtype) if wide else out
+
+
+def _all_to_all(x: torch.Tensor, out_sizes: list, in_sizes: list,
+                group) -> torch.Tensor:
+    """Each rank's ``in_sizes`` blocks of the flat ``x`` sent to the ranks
+    of ``group`` in order; what they sent this rank, concatenated."""
+    out = torch.empty(sum(out_sizes), dtype=x.dtype, device=x.device)
+    _call(dist.all_to_all_single, x, out, x, out_sizes, in_sizes,
+          group=group)
+    return out
 
 
 class _Gather(torch.autograd.Function):
@@ -249,6 +275,110 @@ def gather_columns(parts: Sequence[torch.Tensor], tp: tuple) -> list:
     lead = flat.shape[:-1]
     blocks = flat.reshape(*lead, mesh.size(tp), sum(widths)).split(widths, -1)
     return [b.reshape(*lead, -1) for b in blocks]
+
+
+# ------------------- head groups × head_dim slices --------------------------
+
+class _GroupGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx_, x, split, dim):
+        ctx_.args = (split, dim)
+        return _gather(x, split.pg, split.slices, dim)
+
+    @staticmethod
+    def backward(ctx_, g):
+        split, dim = ctx_.args
+        return _scatter(g, split.pg, split.slices, dim), None, None
+
+
+class _GroupSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx_, x, split):
+        ctx_.split = split
+        return _reduce(x, split.pg)
+
+    @staticmethod
+    def backward(ctx_, g):
+        return _reduce(g, ctx_.split.pg), None
+
+
+def group_heads(parts: Sequence[torch.Tensor], split: ctx.HeadSplit,
+                head_dim: int) -> list:
+    """This rank's column-parallel projections (``parts``: q, k, v, each
+    (..., its columns), the columns of its group's heads on the group's
+    ranks in order) laid out as its group's heads × its head_dim slice:
+    each (..., heads of the group, the slice's ``split.dims``).  One
+    all-gather over the group's ranks makes the group's columns whole; its
+    backward reduce-scatters the gradient, each rank having used its
+    slice."""
+    widths = [p.shape[-1] for p in parts]
+    flat = _GroupGather.apply(torch.cat(list(parts), -1), split, -1)
+    lead = flat.shape[:-1]
+    blocks = flat.reshape(*lead, split.slices, sum(widths)).split(widths, -1)
+    dims = torch.tensor(split.dims(head_dim), device=flat.device)
+    return [b.reshape(*lead, -1, head_dim).index_select(-1, dims)
+            for b in blocks]
+
+
+def group_sum(x: torch.Tensor, split: ctx.HeadSplit) -> torch.Tensor:
+    """The scores' partial sums (this rank's head_dim slice) summed over
+    its group's ranks, in float32; the backward pass sums the gradient
+    over them too, since each rank's p·v, on its own slice, gives only its
+    part of the gradient of the shared scores."""
+    return _GroupSum.apply(x, split)
+
+
+def group_output(out: torch.Tensor, split: ctx.HeadSplit) -> torch.Tensor:
+    """The attention output on this rank's head_dim slice (..., heads,
+    slice) gathered over its group's ranks to (..., heads, head_dim) in
+    head_dim order (backward: a reduce-scatter)."""
+    whole = _GroupGather.apply(out, split, -1)
+    hd = whole.shape[-1]
+    order = [i for j in range(split.slices) for i in split.dims(hd, j)]
+    inverse = torch.empty(hd, dtype=torch.long)
+    inverse[torch.tensor(order)] = torch.arange(hd)
+    return whole.index_select(-1, inverse.to(whole.device))
+
+
+def groups_to_rest(x: torch.Tensor, split: ctx.HeadSplit,
+                   n_kv_heads: int) -> torch.Tensor:
+    """A cache leaf from the compute (B, S, this group's kv heads, this
+    rank's slice ``split.dims``) to its layout at rest, head_dim split
+    over the "tp" axes in contiguous blocks of head_dim / n, every kv head
+    (B, S, n_kv_heads, head_dim / n): one all-to-all over them, each rank
+    sending each block to the rank that holds it at rest (no autograd)."""
+    mesh = ctx.get_mesh()
+    n = mesh.size(split.axes)
+    hd = x.shape[-1] * split.slices
+    rest = hd // n
+    per = n_kv_heads // split.groups
+    B, S = x.shape[:2]
+
+    def pieces(r):
+        """For each rank q, the (position in rank r's slice, position in
+        q's block) of every head_dim index rank r sends q."""
+        dims = split.dims(hd, r % split.slices)
+        return [[(a, d - q * rest) for a, d in enumerate(dims)
+                 if q * rest <= d < (q + 1) * rest] for q in range(n)]
+
+    me = mesh.index(split.axes)
+    send = pieces(me)
+    sends = [x[..., [a for a, _ in pos]].reshape(-1) for pos in send]
+    # a move of bytes: sent as uint8, whatever the cache's dtype
+    item = x.element_size()
+    in_sizes = [t.numel() * item for t in sends]
+    recv = [pieces(r)[me] for r in range(n)]
+    out_sizes = [B * S * per * len(pos) * item for pos in recv]
+    buf = _all_to_all(torch.cat(sends).view(torch.uint8), out_sizes,
+                      in_sizes, mesh.group(split.axes))
+    out = torch.empty((B, S, n_kv_heads, rest), dtype=x.dtype,
+                      device=x.device)
+    for r, (pos, block) in enumerate(zip(recv, buf.split(out_sizes))):
+        if pos:
+            g = r // split.slices
+            out[:, :, g * per:(g + 1) * per, [b for _, b in pos]] = \
+                block.view(x.dtype).reshape(B, S, per, len(pos))
+    return out
 
 
 # ------------------------------ layouts -------------------------------------

@@ -75,10 +75,30 @@ How the LM computes on a mesh (``models/``, ``launch/steps.py``):
     bit at each projection: ranges are the whole tensor's and a
     row-parallel projection's int32 sums are all-reduced before the float
     conversion (the SSM's gate norm, summed over "tp" in another order,
-    rounds otherwise).  ``tp_divides`` says which blocks
-    split; a block whose dims do not divide (phi4-mini's 24 heads at tp =
-    16) gathers what "tp" splits and computes whole, the same on every
-    "model" rank, but for the decode on a head_dim-split cache.
+    rounds otherwise).  ``tp_divides`` says which blocks split by heads,
+    columns and vocabulary.  Where the query heads do not divide over n
+    "tp" ranks (phi4-mini's 24 at 16), self-attention splits as the
+    reference's GSPMD splits it (``head_split``): g = gcd(n_heads, n)
+    head groups, each on s = n / g consecutive ranks that hold a slice of
+    head_dim (rank r: group r // s, slice r % s; the slice takes the same
+    block of both halves of head_dim, so RoPE's rotate-half pairs are
+    its own).  ``wq`` / ``wk`` / ``wv`` are column-parallel as they lie
+    (a group's heads' columns lie on its s ranks), one all-gather over
+    the group (``Mesh.subgroup``) lays them out as the group's heads ×
+    the slice, the scores are the slice's partial sums, all-reduced in
+    float32 over the group (both ways: each rank's p·v, on its slice,
+    gives only its part of the scores' gradient), softmax runs on every
+    rank of the group, p·v on the slice, the output is gathered over the
+    group and ``wo`` is row-parallel; a prefill moves each cache from
+    that layout to its head_dim split at rest in one all-to-all over
+    "tp".  Where the vocabulary does not divide over "tp", the token
+    table splits d_model there at rest (mamba2's 50280 at 16): the
+    embedding looks up the rank's columns and gathers them over "tp",
+    and a tied head contracts the rank's columns, its partial logits
+    all-reduced.  A block that fits neither (``head_split`` is None;
+    ``attn_impl="pallas"``, whose kernel finishes each head's softmax in
+    one launch) gathers what "tp" splits and computes whole, the same on
+    every "model" rank, but for the decode on a head_dim-split cache.
   * **Parameters are gathered per layer**: a block gathers every dim its
     parameters' specs split over the dp axes ("fsdp"), and over "tp" too
     where it computes whole, when it runs, inside the remat region, so the
@@ -109,7 +129,7 @@ from __future__ import annotations
 import contextlib
 import itertools
 import math
-from typing import Any, Sequence
+from typing import Any, NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -218,6 +238,7 @@ class Mesh(AbstractMesh):
         self.device = (default_device(self.rank) if device is None
                        else torch.device(device))
         self._groups = {}
+        self._backend = backend
         n = len(self.axis_names)
         for k in range(1, n + 1):
             for dims in itertools.combinations(range(n), k):
@@ -237,6 +258,32 @@ class Mesh(AbstractMesh):
         if not axes:
             raise ValueError("a group needs at least one axis")
         return self._groups[axes]
+
+    def subgroup(self, axes: Sequence[str], size: int):
+        """This rank's process group of ``size`` consecutive ranks along
+        ``axes`` (by row-major coordinate over them: the reference's
+        replica groups ``[n / size, size]<=[n]``).  Made on first use, by
+        every rank in the same order (every line's blocks, in the order
+        the constructor makes its groups), so it is collective as
+        construction is."""
+        axes = tuple(a for a in self.axis_names if a in tuple(axes))
+        n = self.size(axes)
+        if size < 1 or n % size:
+            raise ValueError(f"{n} ranks along {axes} do not split into "
+                             f"blocks of {size}")
+        if size == n:
+            return self.group(axes)
+        key = (axes, size)
+        if key not in self._groups:
+            dims = [self.axis_names.index(a) for a in axes]
+            rest = [i for i in range(len(self.axis_names)) if i not in dims]
+            lines = np.transpose(self.devices, rest + dims).reshape(-1, n)
+            for block in lines.reshape(-1, size):
+                group = dist.new_group(block.tolist(),
+                                       backend=self._backend)
+                if self.rank in block:
+                    self._groups[key] = group
+        return self._groups[key]
 
     def axis_group(self, name: str):
         """This rank's process group along axis ``name``; its group ranks
@@ -444,6 +491,56 @@ def hd_split(n_kv_heads: int, head_dim: int) -> tuple:
     tp = tp_axes()
     n = math.prod(get_mesh().axis_size(a) for a in tp) if tp else 1
     return tp if tp and n_kv_heads % n and head_dim % n == 0 else ()
+
+
+class HeadSplit(NamedTuple):
+    """Self-attention over "tp" as head groups × head_dim slices
+    (``head_split``): ``groups`` groups of ``n_heads / groups`` query heads
+    and ``n_kv_heads / groups`` kv heads, each group's head_dim split in
+    ``slices`` slices over ``slices`` consecutive ranks.  This rank is in
+    ``group`` and holds ``slice``; ``pg`` is its group's process group."""
+    axes: tuple
+    groups: int
+    slices: int
+    group: int
+    slice: int
+    pg: Any
+
+    def dims(self, head_dim: int, j: int | None = None) -> list:
+        """The head_dim indices of slice ``j`` (this rank's by default):
+        the j-th of ``slices`` blocks of each half of head_dim, so every
+        rotate-half pair (i, i + head_dim / 2) of RoPE lies in one
+        slice."""
+        j = self.slice if j is None else j
+        w, half = head_dim // (2 * self.slices), head_dim // 2
+        lo = list(range(j * w, (j + 1) * w))
+        return lo + [half + i for i in lo]
+
+
+def head_split(n_heads: int, n_kv_heads: int, head_dim: int
+               ) -> HeadSplit | None:
+    """How self-attention splits over the live "tp" axes (n ranks) where
+    the query heads do not divide over them (the reference's GSPMD: n / g
+    ranks share each of g = gcd(n_heads, n) head groups, each holding a
+    slice of head_dim, the scores' partial sums all-reduced over them):
+    None where they do divide (``tp_divides``), where there is no "tp",
+    or where the split does not fit (each group must hold whole kv
+    heads, n_kv_heads % g == 0, each slice whole rotate-half pairs,
+    head_dim % (2 · n / g) == 0, and the cache at rest head_dim's blocks,
+    head_dim % n == 0): the block then computes whole.  Rank r (row-major
+    over the axes) is in group r // s and holds slice r % s, s = n / g."""
+    tp = tp_axes()
+    if not tp:
+        return None
+    mesh = get_mesh()
+    n = mesh.size(tp)
+    g = math.gcd(n_heads, n)
+    s = n // g
+    if n_heads % n == 0 or n_kv_heads % g or head_dim % (2 * s) or \
+            head_dim % n:
+        return None
+    r = mesh.index(tp)
+    return HeadSplit(tp, g, s, r // s, r % s, mesh.subgroup(tp, s))
 
 
 def pod_count() -> int:

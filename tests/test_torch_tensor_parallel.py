@@ -7,7 +7,10 @@ Each "model" rank computes its query heads, MLP columns and vocabulary
 (``parallel.ctx``'s docstring); the reference's GSPMD partitions the same
 matmuls by the same specs.  The reduced llama has 8 query heads and 2 kv
 heads: at tp = 2 the kv heads split too (a heads-split cache), at tp = 4
-a rank's two query heads share one kv head (an hd-split cache).
+a rank's two query heads share one kv head (an hd-split cache).  The
+reduced phi4-mini's 6 heads split as head groups at tp = 4
+(``tests/test_torch_tensor_parallel_heads.py`` holds that path against
+the reference).
 
 The reference runs once, in a subprocess with 8 host devices, on meshes
 with ``Auto`` axis types (as ``tests/test_torch_parallel_lm.py``'s).
@@ -262,15 +265,18 @@ def _layer_flops(cfg, seed=6):
 
 
 def _blocks(cfg):
-    """Each self-attention call's "tp" axes and wq's shape in the compute,
-    over one forward of ``cfg``: which blocks split."""
+    """Each self-attention call's "tp" axes, its head groups × head_dim
+    slices (None where it splits by heads or computes whole) and wq's
+    shape in the compute, over one forward of ``cfg``: which blocks
+    split, and how."""
     from repro_torch.models import attention as A
     from repro_torch.models import model as M
     real, seen = A.self_attention, []
 
-    def rec(params, x, cfg_, *a, tp=(), **kw):
-        seen.append((tp, tuple(params.wq.shape)))
-        return real(params, x, cfg_, *a, tp=tp, **kw)
+    def rec(params, x, cfg_, *a, tp=(), heads=None, **kw):
+        seen.append((tp, heads and (heads.axes, heads.groups, heads.slices),
+                     tuple(params.wq.shape)))
+        return real(params, x, cfg_, *a, tp=tp, heads=heads, **kw)
     A.self_attention = rec
     try:
         with torch.no_grad():
@@ -496,7 +502,7 @@ def test_vocab_parallel_embedding_and_head(ranks, name, shape):
     """Vocab-parallel embedding and head, tied (the reduced llama, its loss
     in sequence chunks), untied (stablelm-1.6b, chunked), audio (musicgen:
     4 codebooks' tables and heads) and phi4-mini (at tp = 4 its 6 heads
-    do not divide): forward logits, loss and gradients against the
+    split as head groups): forward logits, loss and gradients against the
     unsharded run within the float32 tolerance."""
     one, two, four = ranks
     outs = two if shape == (1, 2) else four
@@ -514,10 +520,10 @@ def test_a_dense_layers_flops_split_over_tp(ranks, shape):
     """FlopCounterMode on a (1, tp) rank: a dense layer's matmul FLOPs
     (projections and attention) are exactly one rank's over tp where its
     heads and kv heads divide (the reduced llama at tp = 2, stablelm-1.6b
-    at 2 and 4); with a shared kv head (llama at tp = 4) the kv
-    projections are the one head's, and where the query heads do not
-    divide (phi4-mini at tp = 4) attention is whole and only the MLP
-    splits.  The whole loss's FLOPs on (1, 2), head included, are half."""
+    at 2 and 4) and where its query heads do not (phi4-mini at tp = 4: 2
+    head groups × 2 head_dim halves); with a shared kv head (llama at
+    tp = 4) the kv projections are the one head's.  The whole loss's
+    FLOPs on (1, 2), head included, are half."""
     one, two, four = ranks
     tp = shape[1]
     outs = two if tp == 2 else four
@@ -525,32 +531,33 @@ def test_a_dense_layers_flops_split_over_tp(ranks, shape):
     for out in outs:
         got = out[shape]["flops"]
         assert got["stablelm_1_6b"] * tp == whole["stablelm_1_6b"]
+        assert got["phi4_mini_3_8b"] * tp == whole["phi4_mini_3_8b"]
         if tp == 2:
             assert got["llama3_2_1b"] * 2 == whole["llama3_2_1b"]
-            assert got["phi4_mini_3_8b"] * 2 == whole["phi4_mini_3_8b"]
             assert out[shape]["loss_flops"] * 2 == one[None]["loss_flops"]
         else:
             assert whole["llama3_2_1b"] / 4 < got["llama3_2_1b"] < \
                 whole["llama3_2_1b"] / 2
-            assert whole["phi4_mini_3_8b"] / 4 < got["phi4_mini_3_8b"] < \
-                whole["phi4_mini_3_8b"]
 
 
 def test_blocks_that_do_not_divide_compute_whole(ranks):
-    """Which self-attention blocks split: the reduced llama's on (1, 2)
-    and (1, 4) (wq's columns a rank's); phi4-mini's on (1, 2) (6 heads
-    over 2) but not on (1, 4), where every rank computes the whole block
-    from the gathered wq, as on one rank."""
+    """How self-attention blocks split: the reduced llama's by heads on
+    (1, 2) and (1, 4) (wq's columns a rank's); phi4-mini's by heads on
+    (1, 2) (6 heads over 2), and on (1, 4), where its 6 heads do not
+    divide, as 2 head groups × 2 head_dim halves over "model" (wq's 24
+    columns a rank's, as they lie at rest); whole on one rank."""
     one, two, four = ranks
     for outs, shape in ((two, (1, 2)), (four, (1, 4))):
         n = shape[1]
         for out in outs:
             blocks = out[shape]["blocks"]
-            assert blocks["llama3_2_1b"] == [(("model",), (64, 64 // n))] * 2
-            want = ((("model",), (96, 96 // n)) if n == 2
-                    else ((), (96, 96)))
+            assert blocks["llama3_2_1b"] == [
+                (("model",), None, (64, 64 // n))] * 2
+            want = ((("model",), None, (96, 96 // n)) if n == 2
+                    else ((), (("model",), 2, 2), (96, 96 // n)))
             assert blocks["phi4_mini_3_8b"] == [want] * 2
-    assert one[None]["blocks"]["phi4_mini_3_8b"] == [((), (96, 96))] * 2
+    assert one[None]["blocks"]["phi4_mini_3_8b"] == \
+        [((), None, (96, 96))] * 2
 
 
 def test_no_weight_gather_in_a_dense_block(ranks):

@@ -13,7 +13,7 @@ process on a fake world (rank 0 of 8 or 4), and a real 4-rank gloo world
 Exact throughout: ``model_flops`` and ``active_params`` to the bit; a
 rank's argument bytes equal XLA's ``argument_size_in_bytes`` but for two
 named terms; the fake world's FLOPs, bytes and collectives equal the real
-run's.
+run's, on (2, 2) and, for phi4-mini's head groups, on (1, 4).
 """
 import dataclasses
 import json
@@ -35,6 +35,7 @@ SEQ, BATCH = 32, 8                  # the small cells' (seq_len, batch)
 ARG_CELLS = (("llama3_2_1b", "train"), ("llama3_2_1b", "prefill"),
              ("llama3_2_1b", "decode"), ("qwen3_moe_30b_a3b", "train"))
 MODES = ("train", "prefill", "decode")
+HEADS = "phi4_mini_3_8b"            # 6 query heads: head groups at tp = 4
 # the CGP cell cut to 4 generations, migrating after the 2nd and 4th
 CGP_SMALL = dict(generations=4, migrate_every=2)
 
@@ -159,8 +160,10 @@ def test_argument_bytes_match_reference(ref, fake_84, cell):
 
 def _gloo_rank(rank, world):
     """The small llama cells and the small CGP cell on real tensors of a
-    (data 2, model 2) gloo world, counted (``dryrun.trace``); the plain
-    sharded evaluations' shapes recorded (the kernel's on fake tensors)."""
+    (data 2, model 2) gloo world, and phi4-mini's train cell on (data 1,
+    model 4) (its 6 heads as 2 head groups), counted (``dryrun.trace``);
+    the plain sharded evaluations' shapes recorded (the kernel's on fake
+    tensors)."""
     from repro_torch.kernels import ref as kref
     from repro_torch.launch import dryrun as D
     from repro_torch.launch.mesh import make_debug_mesh
@@ -173,6 +176,10 @@ def _gloo_rank(rank, world):
             fn, args, _ = D.build_cell("llama3_2_1b", _shape(mode), "cpu",
                                        cfg)
             out[mode] = D.trace(fn, args)
+    with ctx.use_mesh(make_debug_mesh(1, 4, device="cpu")):
+        fn, args, _ = D.build_cell(HEADS, _shape("train"), "cpu",
+                                   _reduced(HEADS))
+        out["heads"] = D.trace(fn, args)
     calls, plain = [], kref.cgp_eval_ref_sharded
 
     def counted(genome, spec, in_planes, *args):
@@ -217,22 +224,54 @@ def fake_22():
                                      torch.device("cpu"),
                                      _reduced("llama3_2_1b"))
         out["cgp"] = D.trace_cgp(mesh, torch.device("cpu"), **CGP_SMALL)
+        out["heads"] = D.trace_cell(
+            HEADS, _shape("train"), make_debug_mesh(1, 4, device="cpu"),
+            torch.device("cpu"), _reduced(HEADS))
     return out
+
+
+def _counts(rec):
+    """The counts a fake world's trace and a real run's must share."""
+    return {"cost_analysis": rec["cost_analysis"],
+            "collectives": rec["collectives"], "kernels": rec["kernels"],
+            "argument_size_in_bytes":
+                rec["memory_analysis"]["argument_size_in_bytes"]}
+
+
+def _differing(got, want, path=""):
+    """The paths of the keys where two nested dicts differ, with both
+    values."""
+    if isinstance(got, dict) and isinstance(want, dict):
+        return [d for k in dict.fromkeys([*got, *want])
+                for d in _differing(got.get(k), want.get(k),
+                                    f"{path}/{k}")]
+    return [] if got == want else [(path, got, want)]
 
 
 @pytest.mark.parametrize("mode", MODES)
 def test_fake_world_matches_gloo_run(gloo, fake_22, mode):
     """The reduced llama's step on rank 0 of a fake (2, 2) world counts
     what rank 0 of a real 4-rank gloo run counts: FLOPs by dtype, the
-    aten ops' bytes, and every collective's calls and output bytes by op
-    and by link."""
+    aten ops' bytes, and every collective's calls and output bytes by op,
+    by link and by group size."""
     got, want = fake_22[mode], gloo[0][mode]
-    assert got["cost_analysis"] == want["cost_analysis"]
-    assert got["collectives"] == want["collectives"]
+    assert _differing(_counts(got), _counts(want)) == []
     assert got["collectives"]["total_bytes"] > 0
-    assert got["kernels"] == want["kernels"] == []
-    assert got["memory_analysis"]["argument_size_in_bytes"] == \
-        want["memory_analysis"]["argument_size_in_bytes"]
+    assert got["kernels"] == []
+
+
+def test_fake_world_matches_gloo_run_on_head_groups(gloo, fake_22):
+    """phi4-mini's train step on rank 0 of a fake (1, 4) world, its 6
+    query heads as 2 head groups × 2 head_dim halves, counts what rank 0
+    of the real gloo run counts, the collectives over the 2-rank groups
+    (the q / k / v and output gathers, the scores' all-reduces, and
+    their backward's reduce-scatters and all-reduces) among them, by op,
+    bytes, link and group size."""
+    got, want = fake_22["heads"], gloo[0]["heads"]
+    assert _differing(_counts(got), _counts(want)) == []
+    pairs = got["collectives"]["per_group"]["2"]
+    assert pairs > 0 and set(got["collectives"]["per_link"]) == {"nvlink"}
+    assert got["collectives"]["calls"]["reduce-scatter"] > 0
 
 
 def test_cgp_cell_matches_gloo_run(gloo, fake_22):

@@ -7,6 +7,7 @@
   python3 tools/chip_phases.py tp
   python3 tools/chip_phases.py mixers
   python3 tools/chip_phases.py hd
+  python3 tools/chip_phases.py heads
   python3 tools/chip_phases.py ep_train --seqs 256,4096
   python3 tools/chip_phases.py tooling
   python3 tools/chip_phases.py figures [--width 6 --gens 300]
@@ -27,7 +28,10 @@ its fake world's dry run against rank 0's counts); ``mixers`` (22 (f) and
 (g), the SSM mixer and cross-attention tensor-parallel: mamba2-1.3b and
 llama3.2-vision-11b served, mamba2 trained); ``hd`` (22 (h), the decode
 on a head_dim-split cache: llama3.2-1b on (data 1, model 16), 16 gloo
-ranks on the card); ``tooling`` (23, the
+ranks on the card); ``heads`` (22 (i), the blocks whose dims do not
+divide over 16 ranks: phi4-mini's head groups and mamba2's d_model-split
+table, served, and phi4-mini trained, on (data 1, model 16)); ``tooling``
+(23, the
 dry run and the roofline against the card); ``figures`` (24, the paper's figure
 pipeline: ``--width`` / ``--gens`` set (b)'s width and generations);
 ``figures_pass`` (24 (b) alone into ``--out-dir``, kept: the figure
@@ -107,6 +111,8 @@ PHASES = {"flash": lambda device, tmp, lut, args:
           CS.phase_multi_mixers(device, lut),
           "hd": lambda device, tmp, lut, args:
           CS.phase_multi_hd(device, lut),
+          "heads": lambda device, tmp, lut, args:
+          CS.phase_multi_heads(device, lut),
           "figures": figures,
           "figures_pass": figures_pass,
           "tooling": lambda device, tmp, lut, args:

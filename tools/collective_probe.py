@@ -5,6 +5,7 @@ Spawns ``--ranks`` processes (``repro_torch.parallel.spawn.run_ranks``)
 on the card, each in a ``--backend`` group (default gloo: NCCL refuses two
 ranks on one device), and prints one JSON line: for each call
 (``all_gather`` and ``reduce_scatter`` in their list forms,
+``all_to_all_single`` of uint8 (a prefill's cache to its layout at rest),
 ``all_reduce`` of float32 / bfloat16 / int32 / uint8, MAX / MIN), whether
 it ran, and whether an int32 SUM (``collectives.sum_int32``, the LUT
 path's tensor-parallel sums) gives the host's sums, wrapping past 2^31 as
@@ -51,6 +52,9 @@ def _probe_rank(rank, world, reps):
             x.to(torch.bfloat16)),
         "all_reduce int32": lambda: dist.all_reduce(x.to(torch.int32)),
         "all_reduce uint8": lambda: dist.all_reduce(x.to(torch.uint8)),
+        "all_to_all_single uint8": lambda: dist.all_to_all_single(
+            torch.empty(8 * world, dtype=torch.uint8, device=dev),
+            x.to(torch.uint8).repeat(world)),
         "all_reduce max": lambda: dist.all_reduce(
             x.clone(), op=dist.ReduceOp.MAX),
         "all_reduce min": lambda: dist.all_reduce(
